@@ -1,10 +1,10 @@
 // Native RF sample demux/convert kernels.
 //
 // Host-side hot path of the IQ ingestion pipeline: deinterleave typed
-// integer sample streams into the float32 (re, im) planes the TPU runtime
-// consumes. This is the TPU-native counterpart of the reference's C layer
+// integer sample streams into the float32 (re, im) planes the device runtime
+// consumes. This is the counterpart of the reference's C layer
 // (/root/reference/sydr/c_functions): where the reference put correlators in
-// C, this framework puts them in Pallas on the TPU and keeps only the
+// C, this framework puts them on the accelerator and keeps only the
 // host-bound byte wrangling native.
 //
 // Build: make -C native   (gcc/g++ -O3 -shared -fPIC)

@@ -1,4 +1,4 @@
-"""sydr_tpu: a TPU-native GNSS software receiver framework.
+"""sydr_tpu: a GNSS software receiver framework on JAX accelerators.
 
 Top-level convenience exports; see README.md for the architecture map.
 """

@@ -2,7 +2,7 @@
 
 The scanned runtime (``sydr_tpu.channels.runtime``) reproduces the
 reference's per-millisecond feedback cadence exactly, but its sequential
-1-ms epochs leave the TPU latency-bound. This runtime restructures a block
+1-ms epochs leave the device latency-bound. This runtime restructures a block
 around the classic batch-receiver identity: with NCO rates *frozen for the
 duration of one block*, code and carrier phase are **linear in the consumed
 sample index**, so every epoch's correlation over the whole block becomes one
@@ -12,10 +12,11 @@ dense, embarrassingly parallel computation:
       active gating under frozen rates — identical exact-rational phase
       arithmetic to the scanned runtime.
   Pass B (dense): per-channel aligned sample regions -> carrier mix + chip
-      reconstruction (bit-packed words) + cumulative sums -> per-epoch
-      correlators via boundary differences. No sequential dependence: this
-      pass parallelises over time (the sequence-parallel axis) as well as
-      channels.
+      reconstruction -> per-epoch correlators, either fused in one kernel
+      (``ops.correlator_gpu``) or as the XLA dense pass (bit-packed words +
+      cumulative sums differenced at the epoch bounds). No sequential
+      dependence: this pass parallelises over time (the sequence-parallel
+      axis) as well as channels.
   Pass C (replay scan, [n_ch] wide): per-epoch discriminators, loop filters,
       bit-edge histogram sync, C/N0 and lock indicators — the same update
       arithmetic as the scanned runtime, with the resulting NCO corrections
@@ -39,7 +40,6 @@ State layout, outputs, and flag semantics are identical to
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -60,6 +60,7 @@ from sydr_tpu.constants import (
     GPS_L1CA_CODE_FREQ,
     GPS_L1CA_CODE_LENGTH,
 )
+from sydr_tpu.ops import correlator_gpu as cg
 from sydr_tpu.ops import tracking as trk
 from sydr_tpu.signal import cacode
 
@@ -73,9 +74,8 @@ def _group_size(sampling_frequency: float) -> tuple[int, int]:
     """(group_size, local) such that the chip span packs into 24 bits.
 
     The +7 margin covers ceil rounding, the correlator spacing, and two
-    extra headroom bits so the Pallas kernel can share the ``c0i = 0``
-    word row across all spacings (per-ms anchor drift + spacing shift the
-    bit index by up to 2 beyond the per-spacing-row range).
+    extra headroom bits (per-ms anchor drift + spacing shift the bit index
+    by up to 2 beyond the per-spacing-row range).
     """
     step0 = GPS_L1CA_CODE_FREQ / sampling_frequency
     g = 128
@@ -120,7 +120,7 @@ def _pass_a(cfg: TrackingConfig, st: ChannelState):
 
     Two equivalent implementations (``cfg.pass_a``): the original
     epoch-recurrence scan, and a closed-form vectorised evaluation (no
-    scan, no carry copies — docs/performance.md round-3 roadmap item 3).
+    scan, no carry copies).
     """
     if cfg.pass_a == "closed":
         return _pass_a_closed(cfg, st)
@@ -180,7 +180,7 @@ def _pass_a_scan(cfg: TrackingConfig, st: ChannelState):
     init = (st.rem_code, st.rem_carrier, st.unread,
             jnp.zeros_like(st.unread))
     # unroll: these are tiny [n_ch]-vector steps — the scan's per-iteration
-    # sequencing overhead dominates the arithmetic on TPU
+    # sequencing overhead would dominate the arithmetic
     (rem_code_end, rem_carrier_end, unread_end, consumed_end), seq = \
         jax.lax.scan(step, init, jnp.arange(cfg.block_ms, dtype=jnp.int32),
                      unroll=True)
@@ -316,11 +316,9 @@ def _pass_a_closed(cfg: TrackingConfig, st: ChannelState):
 # code-Doppler rate (|delta| <= code_rail_hz + aiding <= ~10 chips/s), so a
 # word table whose C0I row axis is EXTENDED by the possible integer-chip
 # drift range, built once at superblock start, covers every block: the
-# per-block "roll" collapses to adding the per-channel integer drift ``d``
-# to the kernel's row selector (one scalar), replacing the per-channel
-# dynamic-slice roll + word gather + kernel-layout copies (~5.9 ms/s of
-# device time at the production shape, done 50x per signal-second). The
-# identity making this free: column dc of a per-offset table stack equals
+# per-block "roll" collapses to a row pick at the per-channel integer drift
+# ``d``, replacing the per-channel dynamic-slice roll + word gather done 50x
+# per signal-second. The identity making this free: column dc of a per-offset table stack equals
 # row dc + v of the extended table, since the packed word for (offset dc,
 # C0I row v) depends only on dc + v.
 DRIFT_CHIPS_PER_S = 10.0  # bound guaranteed by code_rail_hz + the freq rail
@@ -417,53 +415,6 @@ def _build_words(cfg: TrackingConfig, bits3x, c_int,
     return jnp.sum(rolled[:, windex] * pow2, axis=-1)   # [n_ch, n_rows, G]
 
 
-def _kernel_word_table(cfg: TrackingConfig, words):
-    """Lane-expanded word table ``[n_ch, n_rows, U_PAD, 128]``.
-
-    Table row ``u`` holds the ``Q`` group words of one 128-sample vector
-    row — ``E[.., u, l] = word[Q*(u - LEAD_U) + (l >> gshift)]``, each word
-    pre-broadcast over its ``gsize`` lanes — so the kernel's per-run word
-    pick is ONE dynamic lane-rotation plus a row-carry select
-    (``words_for_run``), replacing the ``2Q``-way per-lane select chain
-    that measured 6.2 of the 11.2 ms/s decimated kernel (Q = 4 there).
-    The lane axis costs 16x the HBM of the packed ``[.., 2Q]`` form
-    (~0.9-1.6 MB/channel) but is built only per wordpack group (5x/s).
-    ``n_rows`` is ``C0I_ROWS`` per-block or the drift-extended row count of
-    the hoisted table.
-    """
-    from sydr_tpu.ops import correlator_kernel as ck
-
-    spms = cfg.samples_per_ms
-    gsize, _ = _group_size(cfg.sampling_frequency)
-    q_sub = 128 // gsize
-    lead_u, u_pad = ck.wtab_geometry(spms, gsize)
-    n_ch, n_rows = words.shape[0], words.shape[1]
-    g_dim = words.shape[-1]
-    wq = jnp.pad(words, (
-        (0, 0), (0, 0),
-        (lead_u * q_sub, u_pad * q_sub - lead_u * q_sub - g_dim)))
-    tab = wq.reshape(n_ch, n_rows, u_pad, q_sub)
-    if q_sub == 1:
-        # Q == 1 (gsize 128, the full-rate shape): every lane of a table
-        # row holds the SAME word, so ship the lane-1 table as-is and let
-        # the kernel lane-broadcast it in VMEM — the materialized
-        # XLA broadcast measured 2.56 ms/s at the full-rate product shape
-        # and the expanded table cost ~18 GB/s of per-grid-step DMA
-        # (1.6 MB/channel block) for 128x redundant lanes.
-        return tab
-    # Expansion as an exact 0/1 matmul (one nonzero per column, HIGHEST so
-    # the up-to-24-bit f32 words survive): a jnp.repeat here produced a
-    # 1.6 ms/s relayout copy + broadcast on device; the dot_general lands
-    # in the kernel's natural row-major layout copy-free.
-    expand = jnp.asarray(
-        (np.arange(q_sub)[:, None]
-         == (np.arange(128) >> (gsize.bit_length() - 1))[None, :]
-         ).astype(np.float32))
-    return jax.lax.dot_general(
-        tab, expand, (((3,), (0,)), ((), ())),
-        precision=jax.lax.Precision.HIGHEST)
-
-
 def make_wordpack(cfg: TrackingConfig, bits3x, st: ChannelState,
                   t_sb_s: float):
     """Hoisted word tables for every block of a superblock.
@@ -485,57 +436,57 @@ def make_wordpack(cfg: TrackingConfig, bits3x, st: ChannelState,
                         n_rows=dc_n + C0I_ROWS - 1)    # [n_ch, J, G]
     # dc_n/lead are recovered from wtab.shape[1] downstream (the pack must
     # stay a pytree of arrays to cross jit boundaries).
-    pack = {"c_roll": c_roll, "wtab": wtab}
-    if cfg.use_pallas:
-        pack["wtab_p"] = _kernel_word_table(cfg, wtab)
-    return pack
+    return {"c_roll": c_roll, "wtab": wtab}
 
 
-def block_geometry(cfg: TrackingConfig, bits3x, st: ChannelState, geo,
-                   wordpack=None):
-    """Per-block dense-pass geometry: code/carrier phase anchors + words.
+def block_words(cfg: TrackingConfig, bits3x, st: ChannelState, c_int,
+                wordpack=None):
+    """Packed chip words ``[n_ch, C0I_ROWS, G]`` of the dense pass.
 
-    Code phase at *window* sample m is ``B + m*step (mod 1023)``; the integer
-    part of B is folded into a per-channel cyclic roll of the code bits (one
-    dynamic_slice) from which the packed chip words are built with a
-    compile-time gather. Per-millisecond anchor tables carry float32
-    precision for the fractional parts. Shared by the single-device dense
-    pass and the time-sharded (sequence-parallel) variant.
+    Built per block from a cyclic roll of the code bits at ``c_int``, or
+    picked from the superblock-hoisted table of :func:`make_wordpack`.
+    """
+    if wordpack is None:
+        return _build_words(cfg, bits3x, c_int)
+    wtab = wordpack["wtab"]                              # [n_ch, J, G]
+    n_j = wtab.shape[1]
+    dc_n = n_j - C0I_ROWS + 1
+    lead = (dc_n - 2) // 2
+    # Non-tracking channels' intercepts wander (their correlators are
+    # masked out downstream) — pin them to the table centre. Tracking
+    # channels' drift is bounded by code_rail_hz + carrier aiding
+    # (DRIFT_CHIPS_PER_S), so the clip is unreachable for them.
+    d = jnp.where(st.mode == MODE_TRACKING,
+                  jnp.mod(c_int - wordpack["c_roll"], GPS_L1CA_CODE_LENGTH),
+                  jnp.int32(lead))
+    d = jnp.clip(d, 0, dc_n - 1)
+    # Rows [d, d + C0I_ROWS) of the extended table (tiny one-hot
+    # reduction, no dynamic slices).
+    sel = (jnp.arange(n_j, dtype=jnp.int32)[None, :, None]
+           == d[:, None, None]
+           + jnp.arange(C0I_ROWS, dtype=jnp.int32)[None, None, :])
+    return jnp.sum(
+        jnp.where(sel[..., None], wtab[:, :, None, :], 0.0), axis=1)
+
+
+def block_geometry(cfg: TrackingConfig, st: ChannelState, geo):
+    """Per-block code/carrier phase anchors in window coordinates.
+
+    Code phase at *window* sample m is ``B + m*step (mod 1023)``: the
+    integer part ``c_int`` of B selects the code rotation, and
+    per-millisecond anchor tables carry float32 precision for the
+    fractional parts. Shared by the dense pass, the fused correlator and
+    the time-sharded (sequence-parallel) variant.
     """
     spms = cfg.samples_per_ms
     fs = cfg.sampling_frequency
     n_q = cfg.tail_ms + cfg.block_ms
-    L = GPS_L1CA_CODE_LENGTH
     delta = geo["delta"]
     omega = geo["omega"]
 
     # Window position of the first consumed sample (epoch-0 read pointer)
     # and the code phase intercept B = rem0 - base*step (mod 1023).
     base, a_ms, b_rem, c_int, fb = _intercept(cfg, st)
-
-    if wordpack is None:
-        words = _build_words(cfg, bits3x, c_int)         # [n_ch, 4, G]
-        d = None
-    else:
-        wtab = wordpack["wtab"]                          # [n_ch, J, G]
-        n_j = wtab.shape[1]
-        dc_n = n_j - C0I_ROWS + 1
-        lead = (dc_n - 2) // 2
-        # Non-tracking channels' intercepts wander (their correlators are
-        # masked out downstream) — pin them to the table centre. Tracking
-        # channels' drift is bounded by code_rail_hz + carrier aiding
-        # (DRIFT_CHIPS_PER_S), so the clip is unreachable for them.
-        d = jnp.where(st.mode == MODE_TRACKING,
-                      jnp.mod(c_int - wordpack["c_roll"], L),
-                      jnp.int32(lead))
-        d = jnp.clip(d, 0, dc_n - 1)
-        # The boundary recompute's C0I_ROWS-row view: rows [d, d + 4) of
-        # the extended table (tiny one-hot reduction, no dynamic slices).
-        sel = (jnp.arange(n_j, dtype=jnp.int32)[None, :, None]
-               == d[:, None, None]
-               + jnp.arange(C0I_ROWS, dtype=jnp.int32)[None, None, :])
-        words = jnp.sum(
-            jnp.where(sel[..., None], wtab[:, :, None, :], 0.0), axis=1)
 
     qs = jnp.arange(n_q, dtype=jnp.float32)
     fb_q = fb[:, None] + qs[None, :] * (spms * delta / fs)[:, None]
@@ -546,8 +497,7 @@ def block_geometry(cfg: TrackingConfig, bits3x, st: ChannelState, geo,
         + omega * b_rem.astype(jnp.float32)
     )
     phic_q = jnp.mod(phic0[:, None] - qs[None, :] * w_ms[:, None], TWO_PI)
-    return {"base": base, "words": words, "word_drift": d,
-            "fb_q": fb_q, "phic_q": phic_q}
+    return {"base": base, "c_int": c_int, "fb_q": fb_q, "phic_q": phic_q}
 
 
 def dense_streams(cfg: TrackingConfig, words, fb_q, phic_q, omega, code_step,
@@ -599,6 +549,7 @@ def dense_streams(cfg: TrackingConfig, words, fb_q, phic_q, omega, code_step,
     cs0 = np.floor(np.arange(n_groups) * gsize * step0).astype(np.int32)
     cs0_m = jnp.asarray(cs0[np.minimum(grp, n_groups - 1)].astype(np.int32))
 
+    step_parts = cg.code_step_parts(code_step, spms)
     phase = expand_ms(ph_l) - omega[:, None] * lm_f[None, :n_samp]
     cosv, sinv = jnp.cos(phase), jnp.sin(phase)
     mre = cosv * window_re[None, :] - sinv * window_im[None, :]
@@ -633,9 +584,9 @@ def dense_streams(cfg: TrackingConfig, words, fb_q, phic_q, omega, code_step,
         r_m = expand_ms_ext(r_q)
         c0i_m = expand_ms_ext(c0i_q.astype(jnp.float32)).astype(jnp.int32)
 
-        idx_frac = jnp.ceil(
-            r_m + lm_f[None, :] * code_step[:, None]
-        ).astype(jnp.int32)
+        idx_frac = jnp.ceil(cg.chip_phase(
+            r_m, lm_f[None, :], [p[:, None] for p in step_parts]
+        )).astype(jnp.int32)
         l = idx_frac - c0i_m + 2 - cs0_m[None, :]
         l_clip = jnp.clip(l, 0, local - 1)
         p2 = jax.lax.bitcast_convert_type(
@@ -662,341 +613,66 @@ def dense_streams(cfg: TrackingConfig, words, fb_q, phic_q, omega, code_step,
     return jnp.stack(streams, axis=1)
 
 
-def _rowsum_boundary_prefix(cfg, rowtot, wre_p, wim_p, words, fb_q, phic_q,
-                            omega, code_step, bounds, spacings_eff, shifts,
-                            spms, n_q, local, step0, gsize=128):
-    """Inclusive stream prefixes ``P(b) = sum over samples [0, b)`` at every
-    epoch boundary, from the kernel's row-total output.
+def epoch_bounds(cfg: TrackingConfig, geo, base):
+    """``(b_start, b_end)`` ``[block_ms, n_ch]`` epoch sample bounds in
+    window coordinates (inactive epochs are empty)."""
+    n_win = cfg.window_samples
+    req_eff = jnp.where(geo["active"], geo["required"], 0)
+    b_start = geo["b_start"] + base[None, :]
+    b_end = jnp.clip(b_start + req_eff, 0, n_win)
+    return jnp.clip(b_start, 0, n_win), b_end
 
-    ``P(b) = sum of row totals over rows < b//128 + partial(row b//128,
-    lanes < b%128)``; the partial recomputes the boundary-straddling row's
-    streams densely with the kernel's exact chip/carrier arithmetic. Every
-    pick is a one-hot/step contraction — no serial XLA gathers anywhere
-    (the failure mode of the round-2 "row sums + XLA edge partials"
-    variant), and no materialised row prefix at all (``jnp.cumsum`` over
-    the row axis lowered to a 13.6 ms/s reduce-window: the step-function
-    matmul below subsumes it).
 
-    Args:
-        rowtot: ``[n_ch, n_rows, n_streams]`` bfloat16 per-row totals
-            (streams minor — the kernel's native store layout).
-        bounds: ``[n_ch, B]`` boundary sample indices in window coords.
+def correlator_taps(cfg: TrackingConfig) -> tuple:
+    """``((spacing, sample_shift), ...)`` per correlator tap: quantised
+    taps are shifts of the base stream, the others stand alone."""
+    from sydr_tpu.ops import profiles as prof
 
-    Returns ``[n_ch, n_streams, B]`` float32.
-    """
-    n_ch, B = bounds.shape
-    n_rows = rowtot.shape[1]
-    n_streams = rowtot.shape[2]
-    GS = 128
-    rb = bounds // GS
-    t = bounds - rb * GS
-
-    # --- Gather-free row-level picks on the MXU ---------------------------
-    # (1) The interior-rows term of P(b) is a STEP-function contraction of
-    # the bf16 row totals (rows < rb), f32-accumulated — exact products
-    # (0/1 x bf16), one natural matmul. The per-(c,b) row picks ALL
-    # channels' totals and the own-channel column block is selected after —
-    # 32x redundant MACs on the MXU are far cheaper than a per-channel
-    # batched einsum on the VPU (measured 2.1 ms/s for that form).
-    # (2) The boundary-row window samples use a one-hot matrix against
-    # [window_re | window_im] with an exact 3-plane bf16 operand split
-    # (f32 = 8+8+8 mantissa bits, f32 accumulation of a single term).
-    iota_r = jnp.arange(n_rows, dtype=jnp.int32)
-    step_row = (iota_r[None, None, :] < rb[..., None]).astype(
-        jnp.bfloat16).reshape(n_ch * B, n_rows)
-    rt_flat = jnp.transpose(rowtot, (1, 0, 2)).reshape(
-        n_rows, n_ch * n_streams)
-    rp_all = jnp.dot(step_row, rt_flat,
-                     preferred_element_type=jnp.float32).reshape(
-                         n_ch, B, n_ch, n_streams)
-    own = (jnp.arange(n_ch)[:, None, None, None]
-           == jnp.arange(n_ch)[None, None, :, None])
-    pick_rows = jnp.transpose(
-        jnp.sum(jnp.where(own, rp_all, 0.0), axis=2), (0, 2, 1))
-
-    oh_row = (iota_r[None, None, :] == rb[..., None]).astype(
-        jnp.bfloat16).reshape(n_ch * B, n_rows)
-    win2 = wre_p.reshape(-1, GS)[:n_rows]
-    wim2 = wim_p.reshape(-1, GS)[:n_rows]
-    rhs = jnp.concatenate([win2, wim2], axis=1)
-    planes = []
-    rem = rhs
-    for _ in range(3):
-        p = rem.astype(jnp.bfloat16)
-        planes.append(p)
-        rem = rem - p.astype(jnp.float32)
-    picked = sum(
-        jnp.dot(oh_row, p, preferred_element_type=jnp.float32)
-        for p in planes)                       # [n_ch*B, 2*GS]
-    g_re = picked[:, 0:GS].reshape(n_ch, B, GS)
-    g_im = picked[:, GS:2 * GS].reshape(n_ch, B, GS)
-
-    lane = jnp.arange(GS, dtype=jnp.int32)
-    iota_q = jnp.arange(n_q, dtype=jnp.int32)
-    m0 = rb * GS
-
-    def runsel(m0k):
-        """Per-ms run split of one row — the kernel's sub-chunk logic."""
-        q0 = jnp.clip(m0k // spms, 0, n_q - 1)
-        q1 = jnp.minimum(q0 + 1, n_q - 1)
-        ms_next = (q0 + 1) * spms
-        m = m0k[..., None] + lane[None, None, :]
-        in_q1 = m >= ms_next[..., None]
-        lm = jnp.where(in_q1, m - ms_next[..., None],
-                       m - (q0 * spms)[..., None])
-        return q0, q1, ms_next, in_q1, lm
-
-    def pick_q(tab, q):
-        oh = (iota_q[None, None, :] == q[..., None]).astype(tab.dtype)
-        return jnp.sum(oh * tab[:, None, :], axis=-1)
-
-    q0, q1, _, in_q1, lm = runsel(m0)
-    ph0 = pick_q(phic_q, q0)
-    ph1 = pick_q(phic_q, q1)
-    phase = jnp.where(in_q1, ph1[..., None], ph0[..., None]) \
-        - omega[:, None, None] * lm.astype(jnp.float32)
-    cosv, sinv = jnp.cos(phase), jnp.sin(phase)
-    mre = cosv * g_re - sinv * g_im
-    mim = cosv * g_im + sinv * g_re
-
-    G = words.shape[-1]
-    iota_g = jnp.arange(G, dtype=jnp.int32)
-    q_sub = 128 // gsize
-    gshift = gsize.bit_length() - 1
-
-    def words_for_run(fb_s, q_start_m, m0k):
-        """Per-sample words of one run — the kernel's Q+1-way group select
-        (here groups are picked with one-hot reductions; XLA has no slice
-        constraints but must reproduce the same group arithmetic)."""
-        c0i = jnp.floor(fb_s).astype(jnp.int32)
-        rowsel = jnp.clip(c0i - C0I_MIN, 0, C0I_ROWS - 1)
-        n_b = fb_s.shape[1]          # B, or B * n_taps in the folded call
-        wrow = jnp.zeros((n_ch, n_b, G), jnp.float32)
-        for v in range(C0I_ROWS):
-            wrow = wrow + jnp.where(
-                (rowsel == v)[..., None], words[:, None, v, :], 0.0)
-        l0 = m0k - q_start_m
-        a = l0 >> gshift                    # arithmetic shift: floor
-        rless = l0 & (gsize - 1)
-        qd = (lane[None, None, :] + rless[..., None]) >> gshift  # [0, Q]
-        w = jnp.zeros((n_ch, n_b, GS), jnp.float32)
-        for d in range(q_sub + 1):
-            w_d = jnp.sum(jnp.where(
-                iota_g[None, None, :] == a[..., None] + d, wrow, 0.0), -1)
-            w = w + jnp.where(qd == d, w_d[..., None], 0.0)
-        return c0i, w
-
-    def chips_at(tap_sp, m0k):
-        """Chip values of the boundary rows at per-element spacing
-        ``tap_sp`` and start index ``m0k`` (``chip[m + k]`` folds the tap's
-        sample shift into ``m0k`` — identical semantics to the kernel's
-        lane roll / ``dense_streams``' slice). All taps are evaluated in
-        ONE call with the tap axis stacked into the bounds axis: the
-        per-tap dense recomputes share their row geometry, so folding them
-        collapses ~T x the select/reduce fusion instances into one."""
-        q0k, q1k, msnk, inq1k, lmk = runsel(m0k)
-        fb0 = pick_q(fb_q, q0k)
-        fb1 = pick_q(fb_q, q1k)
-        c0a, w_a = words_for_run(fb0 + tap_sp, q0k * spms, m0k)
-        c0b, w_b = words_for_run(fb1 + tap_sp, msnk, m0k)
-        w = jnp.where(inq1k, w_b, w_a)
-        r_el = jnp.where(inq1k, (fb1 + tap_sp)[..., None],
-                         (fb0 + tap_sp)[..., None])
-        c0el = jnp.where(inq1k, c0b[..., None], c0a[..., None])
-        cs0v = jnp.floor((lmk >> gshift).astype(jnp.float32)
-                         * (gsize * step0)).astype(jnp.int32)
-        idxf = jnp.ceil(
-            r_el + lmk.astype(jnp.float32) * code_step[:, None, None]
-        ).astype(jnp.int32)
-        l = jnp.clip(idxf - c0el + 2 - cs0v, 0, local - 1)
-        p2 = jax.lax.bitcast_convert_type(
-            ((127 - l) << 23).astype(jnp.int32), jnp.float32)
-        tt = w * p2
-        bit = jnp.floor(tt) - 2.0 * jnp.floor(tt * 0.5)
-        return 2.0 * bit - 1.0
-
-    # One fused chips_at over all taps: stack the tap axis into the bounds
-    # axis (per-element spacing + sample-shift), then split back. The
-    # per-element arithmetic is unchanged, so values are bit-identical to
-    # the former per-tap calls.
+    shifts = prof.spacing_shifts(cfg)
     if shifts is not None:
         base_sp, ks = shifts
-        taps = [(base_sp, k) for k in ks]
-    else:
-        taps = [(sp, 0) for sp in spacings_eff]
-    n_taps = len(taps)
-    k_e = jnp.asarray([k for _, k in taps], jnp.int32)
-    sp_e = jnp.asarray([s for s, _ in taps], jnp.float32)
-    m0k_all = (m0[..., None] + k_e[None, None, :]).reshape(n_ch, B * n_taps)
-    sp_all = jnp.broadcast_to(
-        sp_e[None, None, :], (n_ch, B, n_taps)).reshape(n_ch, B * n_taps)
-    chips_all = chips_at(sp_all, m0k_all).reshape(n_ch, B, n_taps, GS)
-    chip_list = [chips_all[:, :, t] for t in range(n_taps)]
-
-    mask = (lane[None, None, :] < t[..., None]).astype(jnp.float32)
-    parts = []
-    for chips in chip_list:
-        # bf16 round-trip: the kernel's matmul products are bf16(s) * 1.0
-        # accumulated in f32 — mirror that so P(b) is consistent with the
-        # interior row totals.
-        s_re = (chips * mre).astype(jnp.bfloat16).astype(jnp.float32)
-        s_im = (chips * mim).astype(jnp.bfloat16).astype(jnp.float32)
-        parts.append(jnp.sum(s_re * mask, -1))
-        parts.append(jnp.sum(s_im * mask, -1))
-    partial = jnp.stack(parts, axis=1)
-    return pick_rows + partial
+        return tuple((base_sp, k) for k in ks)
+    return tuple((sp, 0) for sp in prof.spacings_for(cfg))
 
 
 def _pass_b(cfg: TrackingConfig, bits3x, st: ChannelState, geo,
             window_re, window_im, wordpack=None):
-    """Correlators ``[block_ms, n_ch, 6]`` for the whole block.
+    """Correlators ``[block_ms, n_ch, n_streams]`` for the whole block."""
+    return correlate(cfg, bits3x, st, geo, block_geometry(cfg, st, geo),
+                     window_re, window_im, wordpack)
+
+
+def correlate(cfg: TrackingConfig, bits3x, st: ChannelState, geo, bg,
+              window_re, window_im, wordpack=None):
+    """Per-epoch correlators ``[block_ms, n_ch, n_streams]`` of one block
+    from its epoch geometry (``geo``, pass A) and phase anchors (``bg``,
+    :func:`block_geometry`).
 
     Code/carrier phase are linear in the *window* sample index m:
     ``phi_code(m) = B + m*step (mod 1023)`` with ``B = rem0 - base*step``.
-    The integer part of B is folded into a per-channel cyclic roll of the
-    code bits (one dynamic_slice per block); packed chip words are then built
-    with a compile-time gather, and chips are reconstructed per sample by
-    arithmetic bit extraction — no per-sample gathers anywhere.
+    ``cfg.use_pallas`` runs the fused per-epoch correlator
+    (``ops.correlator_gpu``); otherwise the XLA dense pass materialises the
+    per-sample streams, prefix-sums them and differences the prefix at the
+    epoch bounds.
     """
-    spms = cfg.samples_per_ms
-    fs = cfg.sampling_frequency
-    n_ch = st.rem_code.shape[0]
-    gsize, local = _group_size(fs)
-    step0 = GPS_L1CA_CODE_FREQ / fs
-    n_win = cfg.window_samples
-    n_q = cfg.tail_ms + cfg.block_ms
+    b_start, b_end = epoch_bounds(cfg, geo, bg["base"])
 
-    delta = geo["delta"]
-    code_step = geo["code_step"]
-    omega = geo["omega"]
+    if cfg.use_pallas:
+        return cg.correlate_epochs(
+            window_re, window_im, bits3x, bg["c_int"], geo["omega"],
+            geo["code_step"], bg["fb_q"], bg["phic_q"], b_start, b_end,
+            spms=cfg.samples_per_ms, taps=correlator_taps(cfg),
+            code_offset=cfg.ablate_word_row,
+            interpret=cfg.pallas_interpret)
 
-    bg = block_geometry(cfg, bits3x, st, geo, wordpack=wordpack)
-    base, words, fb_q, phic_q = (
-        bg["base"], bg["words"], bg["fb_q"], bg["phic_q"])
-
-    # --- Fused Pallas kernel path ------------------------------------------
-    # kernel sub-chunks must be whole multiples of 8 vector rows and fit in
-    # one millisecond (the two-run anchor logic): any fs >= ~1.05 Msps.
-    chunk = min(8192, 1024 * (spms // 1024))
-    if cfg.use_pallas and chunk >= 1024:
-        from sydr_tpu.ops import correlator_kernel as ck
-        from sydr_tpu.ops import profiles as prof
-
-        assert chunk <= ck.CHUNK
-
-        # keep kernel programs at ~PROGRAM samples regardless of chunk: the
-        # per-grid-step machinery (slices, scalar work, DMA issue) is a
-        # fixed cost, so small chunks amortise it over more sub-chunks.
-        # 64k (vs 32k) became a win once the reduction matmul + store were
-        # hoisted to once per PROGRAM: decimated kernel 6.6 -> 5.6 ms/s
-        # (one program per 20 ms block); full-rate measured neutral.
-        # Trade-off: the window zero-pads up to one whole program, and 64k
-        # raises that waste at the full-rate shape from ~4% to ~19% of
-        # samples (n_win=220000 vs blockpad=65536) — measured a net win
-        # regardless; re-evaluate the program size if the product shape
-        # changes (a divisor-friendly value can reclaim the padding).
-        program = int(os.environ.get(
-            "SYDR_KERNEL_PROGRAM", str(2 * ck.SUPER * ck.CHUNK)))
-        super_n = max(ck.SUPER, program // chunk)
-        blockpad = super_n * chunk
-        pad = (-n_win) % blockpad
-        wre_p = jnp.concatenate(
-            [window_re, jnp.zeros(pad, jnp.float32)]) if pad else window_re
-        wim_p = jnp.concatenate(
-            [window_im, jnp.zeros(pad, jnp.float32)]) if pad else window_im
-        # Sublane-oriented word table (:func:`_kernel_word_table`): the
-        # per-block [n_ch, C0I_ROWS, U_PAD, 2Q] build, or — with a hoisted
-        # wordpack — the superblock-level drift-extended table, consumed
-        # as-is with the per-channel integer drift ``d`` as a kernel row
-        # offset (scalars slot 2).
-        if wordpack is not None:
-            words_p = wordpack["wtab_p"]
-            drift = bg["word_drift"].astype(jnp.float32)
-        else:
-            words_p = _kernel_word_table(cfg, words)
-            drift = jnp.zeros_like(omega)
-        if cfg.ablate_word_row:
-            # Fault injection (see TrackingConfig.ablate_word_row): shift
-            # the kernel's word-row offset to emulate a broken lowering.
-            drift = drift + float(cfg.ablate_word_row)
-        scalars = jnp.stack(
-            [omega, code_step, drift] + [jnp.zeros_like(omega)] * 5, axis=1
-        )
-        spacings_eff = tuple(prof.spacings_for(cfg))
-        n_streams = 2 * len(spacings_eff)
-        shifts = prof.spacing_shifts(cfg)
-        # Epochs are contiguous (b_end(e) == b_start(e+1); inactive epochs
-        # consume nothing), so block_ms + 1 boundary picks suffice and each
-        # correlator is the difference of consecutive picks.
-        req_eff = jnp.where(geo["active"], geo["required"], 0)
-        b_start = jnp.clip(geo["b_start"] + base[None, :], 0, n_win)
-        last_end = jnp.clip(
-            b_start[-1:] + req_eff[-1:], 0, n_win)        # [1, n_ch]
-        bounds = jnp.concatenate([b_start, last_end], axis=0)  # [bm+1, n_ch]
-
-        if cfg.boundary_mode == "rowsum":
-            # Row-level bf16 totals (~1/42 the HBM write of the
-            # full-prefix kernel); boundary prefixes come from step/one-hot
-            # pick matmuls + dense recompute of the straddling rows — no
-            # serial gathers, no materialised row prefix.
-            rowtot = ck.block_rowsum_streams(
-                wre_p, wim_p, words_p, fb_q, phic_q, scalars,
-                spacings=spacings_eff, spms=spms, n_q=n_q, local=local,
-                step0=step0, gsize=gsize, chunk=chunk, super_n=super_n,
-                n_win=n_win, interpret=cfg.pallas_interpret, shifts=shifts,
-            )
-            picked = _rowsum_boundary_prefix(
-                cfg, rowtot, wre_p, wim_p, words, fb_q, phic_q,
-                omega, code_step, jnp.transpose(bounds, (1, 0)),
-                spacings_eff, shifts, spms, n_q, local, step0, gsize,
-            )                                  # [n_ch, n_streams, bm+1]
-            corr = picked[:, :, 1:] - picked[:, :, :-1]
-            return jnp.transpose(corr, (2, 0, 1))
-
-        # boundary_mode == "prefix": full per-sample prefix + XLA gather.
-        # XLA lowers take_along_axis to a serial per-index loop, so fewer
-        # picks matter. NOTE: ten structural alternatives to this
-        # full-prefix + gather form were built and trace-profiled on chip
-        # in round 2 — row sums + XLA edge partials, three in-kernel
-        # boundary-pick schemes, 8-sample-granule prefixes in three output
-        # layouts — and every one measured SLOWER than paying the 188 MB
-        # prefix write (docs/performance.md has the numbers). The round-2
-        # "rowsum" mode above (Pallas row totals + gather-free XLA edges)
-        # is the eleventh attempt.
-        prefix = ck.block_cumsum_streams(
-            wre_p, wim_p, words_p, fb_q, phic_q, scalars,
-            spacings=spacings_eff, spms=spms, n_q=n_q, local=local,
-            step0=step0, gsize=gsize, chunk=chunk, super_n=super_n,
-            n_win=n_win, interpret=cfg.pallas_interpret, shifts=shifts,
-        )
-        # inclusive prefix: sum[b0, b1) = P[b1-1] - P[b0-1], P[-1] = 0
-        valid = (bounds > 0)
-        idxs_c = jnp.clip(bounds - 1, 0, prefix.shape[-1] - 1)
-        flat = jnp.transpose(idxs_c, (1, 0)).reshape(n_ch, 1, -1)
-        vflat = jnp.transpose(valid, (1, 0)).reshape(n_ch, 1, -1)
-        picked = jnp.take_along_axis(
-            prefix,
-            jnp.broadcast_to(flat, (n_ch, n_streams, flat.shape[-1])),
-            axis=-1,
-        ) * vflat
-        corr = picked[:, :, 1:] - picked[:, :, :-1]
-        return jnp.transpose(corr, (2, 0, 1))
-
-    # --- Dense mix (via the shared slice helper) ---------------------------
-    streams_arr = dense_streams(
-        cfg, words, fb_q, phic_q, omega, code_step,
-        window_re, window_im, q_offset=0,
-    )
-    streams = [streams_arr[:, i] for i in range(streams_arr.shape[1])]
-    n_streams = len(streams)
-    cs = jnp.cumsum(jnp.stack(streams, axis=1), axis=-1)
-    zero = jnp.zeros_like(cs[..., :1])
-    cs = jnp.concatenate([zero, cs], axis=-1)
-
-    req_eff = jnp.where(geo["active"], geo["required"], 0)
-    b_start = geo["b_start"] + base[None, :]              # [block_ms, n_ch]
-    b_end = jnp.clip(b_start + req_eff, 0, n_win)
-    b_start = jnp.clip(b_start, 0, n_win)
+    words = block_words(cfg, bits3x, st, bg["c_int"], wordpack)
+    streams = dense_streams(
+        cfg, words, bg["fb_q"], bg["phic_q"], geo["omega"],
+        geo["code_step"], window_re, window_im, q_offset=0,
+    )                                                     # [n_ch, S, n_win]
+    n_ch, n_streams = streams.shape[:2]
+    cs = jnp.cumsum(streams, axis=-1)
+    cs = jnp.concatenate([jnp.zeros_like(cs[..., :1]), cs], axis=-1)
 
     idxs = jnp.stack([b_start, b_end], axis=0)            # [2, block_ms, n_ch]
     idxs = jnp.transpose(idxs, (2, 0, 1)).reshape(n_ch, 1, -1)
@@ -1269,17 +945,12 @@ def run_superblock(cfg: TrackingConfig, k_blocks: int, bits3x,
     sb = cfg.block_ms * spms
     win_len = cfg.window_samples
 
-    # Word tables hoisted out of the block scan: the code-phase intercept
-    # drifts at most DRIFT_CHIPS_PER_S * (wordpack duration) chips from the
-    # group's initial state, so one drift-extended table covers a GROUP of
-    # consecutive blocks. Groups are capped at ~0.1 s: the drift-row count
-    # is then ceil(10*0.1+2)=3 -> 11 table rows, where the kernel measures
-    # FASTER than the per-block 4-row build (22.4 vs 26.6 ms/s full-rate —
-    # the roll/relayout feeding is gone); one table for a full 1 s
-    # superblock would need 26 rows, where the kernel's dynamic row
-    # indexing falls off a Mosaic cliff (60.4 ms/s, trace-measured).
-    # Rebuilding 10x/s costs < 0.5 ms/s (one dynamic-slice roll + static
-    # gather per group).
+    # Dense-pass word tables hoisted out of the block scan: the code-phase
+    # intercept drifts at most DRIFT_CHIPS_PER_S * (wordpack duration)
+    # chips from the group's initial state, so one drift-extended table
+    # covers a GROUP of consecutive blocks (<= 0.2 s, 11 table rows at
+    # 20 ms blocks) and the per-block roll + word gather drops out. The
+    # fused correlator gathers chips directly and needs no table.
     max_group = max(1, int(round(0.2 / (cfg.block_ms * 1e-3))))
     group = max(g for g in range(1, k_blocks + 1)
                 if k_blocks % g == 0 and g <= max_group)
@@ -1292,13 +963,13 @@ def run_superblock(cfg: TrackingConfig, k_blocks: int, bits3x,
         return run_block_batched(cfg, bits3x, st, wre, wim,
                                  wordpack=wordpack)
 
-    # Scan carries hold the state PACKED as two dense matrices: XLA pays one
-    # async copy pair per carried buffer per iteration (~1.8 us each on v5e),
-    # so ~29 tiny [n_ch] leaves cost ~2.5 ms/s at 50 blocks/s — see
-    # channels/state.py pack_state.
+    # Scan carries hold the state PACKED as two dense matrices: one carried
+    # buffer per dtype instead of ~29 tiny [n_ch] leaves, each of which
+    # costs a copy per iteration (channels/state.py pack_state).
     def outer(packed, kg):
         st = unpack_state(*packed)
-        wordpack = make_wordpack(cfg, bits3x, st, t_sb_s=t_group_s)
+        wordpack = (None if cfg.use_pallas else
+                    make_wordpack(cfg, bits3x, st, t_sb_s=t_group_s))
 
         def body(packed2, j):
             st2, outs2 = inner(wordpack, unpack_state(*packed2),

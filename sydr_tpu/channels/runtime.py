@@ -22,8 +22,8 @@ correlator masks samples beyond its dynamic ``required`` count.
 The sliding window buffer is ``[tail_ms + block_ms]`` milliseconds of IQ; the
 tail carries the last ``tail_ms`` ms of the previous block so channels whose
 read cursor lags the write head (bounded by ~2 ms in steady state) stay in
-range — the TPU equivalent of the reference's 100-ms shared-memory circular
-buffer (``channelManager.py:54-61``).
+range — the device-side equivalent of the reference's 100-ms shared-memory
+circular buffer (``channelManager.py:54-61``).
 """
 
 from __future__ import annotations
@@ -69,8 +69,8 @@ class TrackingConfig:
     pll_damping: float = 0.7
     pll_gain: float = 0.25
     pll_pdi: float = 1e-3
-    # Carrier-aided code NCO (not in the reference; standard technique the
-    # TPU design enables by default — scales the code rate by the measured
+    # Carrier-aided code NCO (not in the reference; standard technique this
+    # design enables by default — scales the code rate by the measured
     # carrier Doppler so the DLL only tracks residuals).
     carrier_aiding: bool = True
     min_convergence_ms: int = 100  # bit-sync arming delay (reference :30)
@@ -97,8 +97,7 @@ class TrackingConfig:
     # the FLL assist and lock indicators read only the prompts, so the
     # delayed-feedback robustness that made kaplan the production cruise
     # profile (round 5, ops/profiles.py alias note) is retained at the
-    # borre kernel cost (6 streams, not 10; measured ~10% of headline
-    # RTF). The wide pair only matters for pull-in/wide-track, which the
+    # borre correlator cost (6 streams, not 10). The wide pair only matters for pull-in/wide-track, which the
     # 5-tap pull-in configuration still runs.
     kaplan_narrow_only: bool = False
     spacing_wide: float = 0.5
@@ -149,8 +148,12 @@ class TrackingConfig:
     # "scan": per-ms feedback cadence (reference-exact); "batch": two-pass
     # frozen-rate blocks (dense, time-parallel; see channels/batch_runtime).
     runtime: str = "scan"
-    use_pallas: bool = False       # batch runtime: fused correlation kernel
-    pallas_interpret: bool = False  # run the kernel in interpreter mode
+    # Batch runtime pass B: the fused per-epoch correlator
+    # (ops/correlator_gpu.py, CUDA GPUs) instead of the XLA dense pass.
+    use_pallas: bool = False
+    # Run that kernel in the Pallas interpreter (CPU tests only; without it
+    # use_pallas raises on a non-GPU backend).
+    pallas_interpret: bool = False
     # Batch runtime: blocks per device dispatch (host fetch amortisation);
     # host-side decode/measurement cadence coarsens to the superblock.
     superblock: int = 1
@@ -172,33 +175,21 @@ class TrackingConfig:
     # the effective chip spacing is k * code_step, Doppler-scaled). Keeps
     # E/L symmetric about the prompt (zero pseudorange bias) and lets the
     # dense pass and the Pallas kernel derive E/L chips by shifting the
-    # single base chip stream instead of three per-spacing reconstructions.
+    # single base chip stream.
     quantize_spacing: bool = False
     epl_method: str = "bitpack"
-    # Pallas-path boundary extraction:
-    #   "rowsum" (default) — the kernel writes only a 128-sample-row-level
-    #     prefix (~1/21 the HBM write) and the <= block_ms+1
-    #     boundary-straddling rows per channel are recomputed densely in
-    #     XLA (one one-hot pick matmul — no serial gathers), trading ~2%
-    #     redundant compute for the dominant HBM prefix write. Measured
-    #     device time 54 -> 38 ms per signal-second at the product shape.
-    #   "prefix" — the kernel writes the full per-sample prefix of every
-    #     stream to HBM (~188 MB/block at the product shape) and epoch sums
-    #     are picked with take_along_axis. The round-1 production design,
-    #     kept as the fallback/oracle form.
-    boundary_mode: str = "rowsum"
     # Batch-runtime pass A (epoch geometry): "closed" (vectorised closed
     # form — no scan, no carry copies; all-or-nothing block activation,
-    # f32-equivalent trajectories; production default, measured 89.6 ->
-    # 93.1 decimated RTF on chip) or "scan" (the original per-epoch
-    # recurrence, kept as the oracle form; see batch_runtime._pass_a_*).
+    # f32-equivalent trajectories; production default) or "scan" (the
+    # original per-epoch recurrence, kept as the oracle form; see
+    # batch_runtime._pass_a_*).
     pass_a: str = "closed"
-    # Fault injection (tests/parity gate only): offset the Pallas kernel's
-    # word-table row selection by this many rows, emulating the documented
-    # "misaligned word rows" backend-lowering failure mode (a ~1-chip code
-    # misalignment that collapses the prompt correlators). Lets the parity
-    # gate be tested end-to-end: production_parity(ablate=True) must fail
-    # and bench.py must exit non-zero. Never set in production.
+    # Fault injection (tests/parity gate only): offset the fused
+    # correlator's code-table index by this many chips, emulating a broken
+    # kernel whose chips are misaligned (the prompt correlators collapse).
+    # Lets the parity gate be tested end-to-end:
+    # production_parity(ablate=True) must fail and bench.py must exit
+    # non-zero. Never set in production.
     ablate_word_row: int = 0
 
     @property

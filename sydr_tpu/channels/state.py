@@ -2,7 +2,7 @@
 
 The reference gives each satellite channel its own OS process with Python
 object state (``/root/reference/sydr/channel/channel.py:21`` and
-``channel_l1ca_borre.py:106-140``). The TPU-native design makes *channel* an
+``channel_l1ca_borre.py:106-140``). This design makes *channel* an
 array axis: all per-channel state lives in one pytree of ``[n_channels]``
 arrays, updated in lockstep by a single SPMD program (vmapped, then sharded
 over a device mesh along the channel axis).
@@ -124,12 +124,11 @@ def init_state(n_channels: int) -> ChannelState:
 
 
 # --- Packed scan-carry form -------------------------------------------------
-# XLA materialises one async copy-start/copy-done pair PER CARRIED BUFFER per
-# lax.scan iteration; with ~29 tiny [n_ch] leaves that fixed cost measured
-# ~2.5 ms per signal-second at the product shape (50 block iterations/s on a
-# v5e trace — more than the whole boundary recompute). Scans therefore carry
-# the state as TWO dense matrices; pack/unpack are column slices/concats that
-# fuse into the body for free.
+# XLA can materialise one copy PER CARRIED BUFFER per lax.scan iteration;
+# with ~29 tiny [n_ch] leaves that fixed cost is paid 50 times per
+# signal-second at the product shape. Scans therefore carry the state as TWO
+# dense matrices; pack/unpack are column slices/concats that fuse into the
+# body for free.
 
 _F32_FIELDS = tuple(
     f.name for f in dataclasses.fields(ChannelState)

@@ -177,8 +177,14 @@ def load_ini(path: str) -> RunConfig:
 
 
 def load_yaml(path: str) -> RunConfig:
-    """Load the native YAML configuration format."""
-    import yaml
+    """Load the native YAML configuration format (needs PyYAML)."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError(
+            f"{path}: YAML configs need PyYAML, which is not installed; "
+            "install it or use the reference's .ini format "
+            "(config/receiver.ini)") from e
 
     with open(path) as fh:
         doc = yaml.safe_load(fh)

@@ -2,10 +2,11 @@
 
 Covers the reference's bokeh/panel report
 (``/root/reference/sydr/io/visualisation.py``) with a dependency-light
-implementation: matplotlib figures embedded as base64 PNGs in one
-self-contained HTML file — acquisition summary, per-channel tracking panels
-(C/N0, carrier frequency, discriminators, correlators), position fixes with
-ENU errors and statistics against an optional surveyed reference position.
+implementation: matplotlib figures (when matplotlib is installed) embedded
+as base64 PNGs in one self-contained HTML file — acquisition summary,
+per-channel tracking panels (C/N0, carrier frequency, discriminators,
+correlators), position fixes with ENU errors and statistics against an
+optional surveyed reference position.
 """
 
 from __future__ import annotations
@@ -36,77 +37,90 @@ def generate_report(
     reference_position=None,
     title: str = "sydr_tpu run report",
 ) -> str:
-    """Render the report; returns the output path."""
-    import matplotlib
+    """Render the report; returns the output path.
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    Without matplotlib the report keeps its tables and statistics and
+    leaves out the figures."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        plt = None
 
     sections: list[str] = [f"<h1>{html.escape(title)}</h1>"]
+    if plt is None:
+        sections.append("<p>matplotlib is not installed: figures are "
+                        "left out.</p>")
 
     # --- Acquisition summary ------------------------------------------------
     acq = db.fetch("acquisition")
     if acq:
-        fig, ax = plt.subplots(figsize=(7, 3))
-        prns = [r["prn"] for r in acq]
-        metrics = [r["metric"] for r in acq]
-        ax.bar([f"G{p:02d}" for p in prns], metrics, color="#3b6ea5")
-        ax.axhline(1.5, color="r", ls="--", lw=1, label="threshold")
-        ax.set_ylabel("peak ratio")
-        ax.set_title("Acquisition metric per satellite")
-        ax.legend()
-        sections.append("<h2>Acquisition</h2>" + _fig_to_html(fig))
-
-        # Doppler x code-phase correlation surfaces (the reference's
-        # utils/surface3d.py view), rendered as heatmaps when stored.
-        from sydr_tpu.io.database import blob_to_array
-
-        maps = [r for r in acq if r.get("corr_map") is not None]
-        if maps:
-            cols = min(3, len(maps))
-            rows = (len(maps) + cols - 1) // cols
-            fig, axes = plt.subplots(
-                rows, cols, figsize=(4.2 * cols, 2.8 * rows), squeeze=False)
-            for k, r in enumerate(maps):
-                m = blob_to_array(r["corr_map"])
-                dops = blob_to_array(r["corr_dopplers"])
-                ax = axes[k // cols][k % cols]
-                ax.imshow(
-                    m, aspect="auto", origin="lower", cmap="viridis",
-                    extent=(0, m.shape[1], float(dops[0]) / 1e3,
-                            float(dops[-1]) / 1e3),
-                )
-                ax.set_title(f"G{r['prn']:02d} metric={r['metric']:.1f}",
-                             fontsize=9)
-                ax.set_xlabel("code phase [chips]", fontsize=8)
-                ax.set_ylabel("Doppler [kHz]", fontsize=8)
-            for k in range(len(maps), rows * cols):
-                axes[k // cols][k % cols].axis("off")
-            fig.tight_layout()
+        sections.append("<h2>Acquisition</h2>")
+        if plt is not None:
+            fig, ax = plt.subplots(figsize=(7, 3))
+            prns = [r["prn"] for r in acq]
+            metrics = [r["metric"] for r in acq]
+            ax.bar([f"G{p:02d}" for p in prns], metrics, color="#3b6ea5")
+            ax.axhline(1.5, color="r", ls="--", lw=1, label="threshold")
+            ax.set_ylabel("peak ratio")
+            ax.set_title("Acquisition metric per satellite")
+            ax.legend()
             sections.append(_fig_to_html(fig))
 
-            # 3-D correlation surface (the reference's vis.js widget,
-            # utils/surface3d.py:8-40, as a static render): the strongest
-            # acquisition's Doppler x code-phase surface.
-            best = max(maps, key=lambda r: r["metric"])
-            m = blob_to_array(best["corr_map"])
-            dops = blob_to_array(best["corr_dopplers"])
-            # decimate the code-phase axis for a drawable mesh
-            step = max(1, m.shape[1] // 512)
-            ms = m[:, ::step]
-            X, Y = np.meshgrid(
-                np.arange(0, m.shape[1], step), np.asarray(dops) / 1e3)
-            fig = plt.figure(figsize=(7.5, 5))
-            ax = fig.add_subplot(111, projection="3d")
-            ax.plot_surface(X, Y, ms, cmap="viridis", rstride=1, cstride=1,
-                            linewidth=0, antialiased=False)
-            ax.set_xlabel("code phase [samples]", fontsize=8)
-            ax.set_ylabel("Doppler [kHz]", fontsize=8)
-            ax.set_title(
-                f"Correlation surface G{best['prn']:02d} "
-                f"(metric {best['metric']:.1f})", fontsize=10)
-            sections.append("<h3>Correlation surface</h3>"
-                            + _fig_to_html(fig))
+            # Doppler x code-phase correlation surfaces (the reference's
+            # utils/surface3d.py view), rendered as heatmaps when stored.
+            from sydr_tpu.io.database import blob_to_array
+
+            maps = [r for r in acq if r.get("corr_map") is not None]
+            if maps:
+                cols = min(3, len(maps))
+                rows = (len(maps) + cols - 1) // cols
+                fig, axes = plt.subplots(
+                    rows, cols, figsize=(4.2 * cols, 2.8 * rows),
+                    squeeze=False)
+                for k, r in enumerate(maps):
+                    m = blob_to_array(r["corr_map"])
+                    dops = blob_to_array(r["corr_dopplers"])
+                    ax = axes[k // cols][k % cols]
+                    ax.imshow(
+                        m, aspect="auto", origin="lower", cmap="viridis",
+                        extent=(0, m.shape[1], float(dops[0]) / 1e3,
+                                float(dops[-1]) / 1e3),
+                    )
+                    ax.set_title(
+                        f"G{r['prn']:02d} metric={r['metric']:.1f}",
+                        fontsize=9)
+                    ax.set_xlabel("code phase [chips]", fontsize=8)
+                    ax.set_ylabel("Doppler [kHz]", fontsize=8)
+                for k in range(len(maps), rows * cols):
+                    axes[k // cols][k % cols].axis("off")
+                fig.tight_layout()
+                sections.append(_fig_to_html(fig))
+
+                # 3-D correlation surface (the reference's vis.js widget,
+                # utils/surface3d.py:8-40, as a static render): the strongest
+                # acquisition's Doppler x code-phase surface.
+                best = max(maps, key=lambda r: r["metric"])
+                m = blob_to_array(best["corr_map"])
+                dops = blob_to_array(best["corr_dopplers"])
+                # decimate the code-phase axis for a drawable mesh
+                step = max(1, m.shape[1] // 512)
+                ms = m[:, ::step]
+                X, Y = np.meshgrid(
+                    np.arange(0, m.shape[1], step), np.asarray(dops) / 1e3)
+                fig = plt.figure(figsize=(7.5, 5))
+                ax = fig.add_subplot(111, projection="3d")
+                ax.plot_surface(X, Y, ms, cmap="viridis", rstride=1, cstride=1,
+                                linewidth=0, antialiased=False)
+                ax.set_xlabel("code phase [samples]", fontsize=8)
+                ax.set_ylabel("Doppler [kHz]", fontsize=8)
+                ax.set_title(
+                    f"Correlation surface G{best['prn']:02d} "
+                    f"(metric {best['metric']:.1f})", fontsize=10)
+                sections.append("<h3>Correlation surface</h3>"
+                                + _fig_to_html(fig))
         rows = "".join(
             f"<tr><td>G{r['prn']:02d}</td><td>{r['doppler']:+.0f}</td>"
             f"<td>{r['code_index']}</td>"
@@ -124,7 +138,7 @@ def generate_report(
 
     # --- Tracking panels ----------------------------------------------------
     track = db.fetch("tracking")
-    if track:
+    if track and plt is not None:
         by_ch: dict[int, list[dict]] = {}
         for r in track:
             by_ch.setdefault(r["channel_id"], []).append(r)
@@ -164,27 +178,28 @@ def generate_report(
         ref = (np.asarray(reference_position, dtype=np.float64)
                if reference_position is not None else xyz.mean(axis=0))
         enu = np.array([geodesy.ecef_to_enu(p, ref) for p in xyz])
-
-        fig, axes = plt.subplots(1, 2, figsize=(11, 4))
-        axes[0].plot(enu[:, 0], enu[:, 1], "o-", ms=3)
-        axes[0].axhline(0, color="k", lw=0.5)
-        axes[0].axvline(0, color="k", lw=0.5)
-        axes[0].set_xlabel("East [m]")
-        axes[0].set_ylabel("North [m]")
-        axes[0].set_title("Horizontal scatter"
-                          + ("" if reference_position is None
-                             else " (vs reference)"))
-        axes[0].axis("equal")
         t0 = tow - tow[0]
-        axes[1].plot(t0, enu[:, 0], label="E")
-        axes[1].plot(t0, enu[:, 1], label="N")
-        axes[1].plot(t0, enu[:, 2], label="U")
-        axes[1].set_xlabel("time [s]")
-        axes[1].set_ylabel("error [m]")
-        axes[1].set_title("ENU components")
-        axes[1].legend()
-        fig.tight_layout()
-        sections.append(_fig_to_html(fig))
+
+        if plt is not None:
+            fig, axes = plt.subplots(1, 2, figsize=(11, 4))
+            axes[0].plot(enu[:, 0], enu[:, 1], "o-", ms=3)
+            axes[0].axhline(0, color="k", lw=0.5)
+            axes[0].axvline(0, color="k", lw=0.5)
+            axes[0].set_xlabel("East [m]")
+            axes[0].set_ylabel("North [m]")
+            axes[0].set_title("Horizontal scatter"
+                              + ("" if reference_position is None
+                                 else " (vs reference)"))
+            axes[0].axis("equal")
+            axes[1].plot(t0, enu[:, 0], label="E")
+            axes[1].plot(t0, enu[:, 1], label="N")
+            axes[1].plot(t0, enu[:, 2], label="U")
+            axes[1].set_xlabel("time [s]")
+            axes[1].set_ylabel("error [m]")
+            axes[1].set_title("ENU components")
+            axes[1].legend()
+            fig.tight_layout()
+            sections.append(_fig_to_html(fig))
 
         stats = (
             "<table border=1 cellpadding=4>"
@@ -206,15 +221,16 @@ def generate_report(
 
         gdop = [r["gdop"] for r in pos]
         clock = [r["clock_bias"] for r in pos]
-        fig, axes = plt.subplots(1, 2, figsize=(11, 3))
-        axes[0].plot(t0, clock)
-        axes[0].set_title("Clock bias [m]")
-        axes[1].plot(t0, gdop)
-        axes[1].set_title("GDOP")
-        for ax in axes:
-            ax.set_xlabel("time [s]")
-        fig.tight_layout()
-        sections.append(_fig_to_html(fig))
+        if plt is not None:
+            fig, axes = plt.subplots(1, 2, figsize=(11, 3))
+            axes[0].plot(t0, clock)
+            axes[0].set_title("Clock bias [m]")
+            axes[1].plot(t0, gdop)
+            axes[1].set_title("GDOP")
+            for ax in axes:
+                ax.set_xlabel("time [s]")
+            fig.tight_layout()
+            sections.append(_fig_to_html(fig))
 
         # Solved velocity + clock drift (Doppler LSE, nav/lse.py:123);
         # rows predating the velocity solve carry NULLs and are skipped.
@@ -230,19 +246,22 @@ def generate_report(
             # render in range-rate units (m/s) to match the label
             drift = np.array(
                 [r["clock_drift"] for r in vel_rows]) * 299792458.0
-            fig, axes = plt.subplots(1, 2, figsize=(11, 3))
-            for k, name in enumerate(("E", "N", "U")):
-                axes[0].plot(vt, venu[:, k], label=name)
-            axes[0].set_title("Velocity ENU [m/s]")
-            axes[0].legend()
-            axes[1].plot(vt, drift)
-            axes[1].set_title("Clock drift [m/s]")
-            for ax in axes:
-                ax.set_xlabel("time [s]")
-            fig.tight_layout()
+            vel_fig = ""
+            if plt is not None:
+                fig, axes = plt.subplots(1, 2, figsize=(11, 3))
+                for k, name in enumerate(("E", "N", "U")):
+                    axes[0].plot(vt, venu[:, k], label=name)
+                axes[0].set_title("Velocity ENU [m/s]")
+                axes[0].legend()
+                axes[1].plot(vt, drift)
+                axes[1].set_title("Clock drift [m/s]")
+                for ax in axes:
+                    ax.set_xlabel("time [s]")
+                fig.tight_layout()
+                vel_fig = _fig_to_html(fig)
             speed = np.linalg.norm(venu, axis=1)
             sections.append(
-                "<h3>Velocity</h3>" + _fig_to_html(fig)
+                "<h3>Velocity</h3>" + vel_fig
                 + f"<p>speed mean {speed.mean():.3f} m/s, max "
                 f"{speed.max():.3f} m/s; clock drift mean "
                 f"{drift.mean():+.3f} m/s</p>")
@@ -250,28 +269,29 @@ def generate_report(
         # Map view (reference visualisation.py:643-801 renders an OSM tile
         # map; this report is self-contained/offline, so the geodetic track
         # is drawn locally and an OSM link opens the same spot online).
-        lla = np.array([geodesy.ecef_to_geodetic(p) for p in xyz])
-        lat = np.degrees(lla[:, 0])
-        lon = np.degrees(lla[:, 1])
-        fig, ax = plt.subplots(figsize=(6, 5))
-        ax.plot(lon, lat, ".-", ms=4, color="#3b6ea5", label="fixes")
-        if reference_position is not None:
-            rl = geodesy.ecef_to_geodetic(np.asarray(reference_position,
-                                                     dtype=np.float64))
-            rlla = (np.degrees(rl[0]), np.degrees(rl[1]))
-            ax.plot([rlla[1]], [rlla[0]], "r*", ms=14, label="reference")
-        ax.set_xlabel("longitude [deg]")
-        ax.set_ylabel("latitude [deg]")
-        ax.set_title("Geodetic track")
-        ax.ticklabel_format(useOffset=False, style="plain")
-        ax.legend()
-        fig.tight_layout()
-        osm = (f"https://www.openstreetmap.org/"
-               f"?mlat={lat.mean():.6f}&mlon={lon.mean():.6f}#map=16/"
-               f"{lat.mean():.6f}/{lon.mean():.6f}")
-        sections.append(
-            "<h3>Map</h3>" + _fig_to_html(fig)
-            + f'<p><a href="{osm}">open mean fix on OpenStreetMap</a></p>')
+        if plt is not None:
+            lla = np.array([geodesy.ecef_to_geodetic(p) for p in xyz])
+            lat = np.degrees(lla[:, 0])
+            lon = np.degrees(lla[:, 1])
+            fig, ax = plt.subplots(figsize=(6, 5))
+            ax.plot(lon, lat, ".-", ms=4, color="#3b6ea5", label="fixes")
+            if reference_position is not None:
+                rl = geodesy.ecef_to_geodetic(np.asarray(reference_position,
+                                                         dtype=np.float64))
+                rlla = (np.degrees(rl[0]), np.degrees(rl[1]))
+                ax.plot([rlla[1]], [rlla[0]], "r*", ms=14, label="reference")
+            ax.set_xlabel("longitude [deg]")
+            ax.set_ylabel("latitude [deg]")
+            ax.set_title("Geodetic track")
+            ax.ticklabel_format(useOffset=False, style="plain")
+            ax.legend()
+            fig.tight_layout()
+            osm = (f"https://www.openstreetmap.org/"
+                   f"?mlat={lat.mean():.6f}&mlon={lon.mean():.6f}#map=16/"
+                   f"{lat.mean():.6f}/{lon.mean():.6f}")
+            sections.append(
+                "<h3>Map</h3>" + _fig_to_html(fig)
+                + f'<p><a href="{osm}">open mean fix on OpenStreetMap</a></p>')
 
     # --- Per-stage processing time ------------------------------------------
     timing = db.fetch("timing")

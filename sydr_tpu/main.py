@@ -85,7 +85,7 @@ def _build_demo(args):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        prog="sydr_tpu", description="TPU-native GNSS software receiver")
+        prog="sydr_tpu", description="GNSS software receiver")
     parser.add_argument("--config", help="receiver config (.ini or .yaml)")
     parser.add_argument("--demo", action="store_true",
                         help="run the synthetic demo scenario")
@@ -101,7 +101,7 @@ def main(argv=None) -> int:
     parser.add_argument("--runtime", choices=("scan", "batch"),
                         default="batch")
     parser.add_argument("--pallas", action="store_true",
-                        help="use the fused Pallas correlation kernel")
+                        help="use the fused correlation kernel (GPU)")
     parser.add_argument("--superblock", type=int, default=1,
                         help="blocks per device dispatch (batch runtime)")
     parser.add_argument("--no-cruise", action="store_true",
@@ -133,6 +133,10 @@ def main(argv=None) -> int:
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+
+    from sydr_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     # Layered logging (reference logger.py:22-30 + config/logging.ini):
     # INFO console + DEBUG file in the output folder; --log-config applies

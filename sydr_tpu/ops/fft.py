@@ -1,10 +1,9 @@
-"""Matmul-based DFT for TPU backends without complex-dtype support.
+"""Matmul-based DFT over (re, im) float32 pairs.
 
 The reference implementation leans on ``numpy.fft`` / Ooura's C FFT
-(``/root/reference/sydr/c_functions/fft8g.h``). The TPU backend used here has
-no complex dtype at all, so complex values are carried as (re, im) float32
-pairs and the DFT is evaluated with the *four-step (Bailey) algorithm*:
-``N = N1 * N2`` and
+(``/root/reference/sydr/c_functions/fft8g.h``). Here complex values are
+carried as (re, im) float32 pairs and the DFT is evaluated with the
+*four-step (Bailey) algorithm*: ``N = N1 * N2`` and
 
     X[N2*k1 + k2] = sum_{n1} W1[n1, k1] * T[k2, n1] *
                     sum_{n2} W2[k2, n2] * x[n1 + N1*n2]
@@ -12,14 +11,15 @@ pairs and the DFT is evaluated with the *four-step (Bailey) algorithm*:
 i.e. reshape to ``[N2, N1]``, a column DFT (matmul with ``W2 [N2, N2]``), a
 twiddle multiply (``T[k2, n1] = exp(-2j pi k2 n1 / N)``), a row DFT (matmul
 with ``W1 [N1, N1]``), and a transpose. Each complex matmul expands to four
-real matmuls, which land on the MXU — for the acquisition workload the DFT is
-batched over (doppler x channel x block), so the systolic array runs at high
-occupancy. This is the TPU-native replacement for an FFT: at N ~ 10^4 with
-factors ~100 the matmul DFT costs ~N*(N1+N2) MACs/point-batch, ~35x the
-flops of an ideal FFT but >100x better hardware utilisation than a scalar
-butterfly network on this architecture.
+real matmuls; for the acquisition workload the DFT is batched over
+(doppler x channel x block), so the matrix units run at high occupancy. At
+N ~ 10^4 with factors ~100 the matmul DFT costs ~N*(N1+N2) MACs per
+transform, ~35x the flops of an ideal FFT. Whether cuFFT (``jnp.fft`` on
+complex64) beats it on a GPU is measured by ``chip_smoke.py``.
 
 Plans are precomputed on the host in float64 and shipped as float32 arrays.
+Float32 plans run their matmuls at ``Precision.HIGHEST`` (no TF32
+rounding of the operands).
 """
 
 from __future__ import annotations
@@ -78,10 +78,10 @@ def make_plan(
     """Build a forward (or inverse, 1/N-scaled) DFT plan for length ``n``.
 
     ``matmul_dtype`` (e.g. ``jnp.bfloat16``) stores the two DFT matrices in a
-    reduced precision for the MXU fast path; :func:`dft` then casts its inputs
-    to match and accumulates in float32 (``preferred_element_type``). The
-    twiddles stay in ``dtype`` — they are applied elementwise on the VPU, so
-    narrowing them saves nothing and costs accuracy. bf16 inputs round at
+    reduced precision; :func:`dft` then casts its inputs to match and
+    accumulates in float32 (``preferred_element_type``). The twiddles stay
+    in ``dtype`` — they are applied elementwise, so narrowing them saves
+    nothing and costs accuracy. bf16 inputs round at
     ~2^-9 relative, far below the noise floor of acquisition workloads.
     """
     n1, n2 = _balanced_factors(n)
@@ -128,7 +128,8 @@ def dft(xr: jax.Array, xi: jax.Array, plan: DFTPlan, *,
     mm_dtype = plan.w1_re.dtype
     ar = xr.reshape(batch + (n2, n1)).astype(mm_dtype)
     ai = xi.reshape(batch + (n2, n1)).astype(mm_dtype)
-    mm = functools.partial(jnp.einsum, preferred_element_type=jnp.float32)
+    mm = functools.partial(jnp.einsum, preferred_element_type=jnp.float32,
+                           precision=jax.lax.Precision.HIGHEST)
 
     # Inner DFT over n2: B = W2 @ A -> [.., n2(k2), n1]
     br = mm("kn,...nm->...km", plan.w2_re, ar) - mm(

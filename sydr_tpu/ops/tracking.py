@@ -1,6 +1,6 @@
 """Tracking-loop DSP: EPL correlators, discriminators, loop filters.
 
-TPU-native re-derivation of the reference tracking kernels
+Array-program re-derivation of the reference tracking kernels
 (``/root/reference/sydr/dsp/tracking.py`` and ``c_functions/tracking.c``).
 Key structural differences from the reference:
 
@@ -32,6 +32,8 @@ import jax.numpy as jnp
 
 TWO_PI = 2.0 * jnp.pi
 N_PADDED = 1025  # padded code length
+# Correlator dot products keep full float32 operands (no TF32 rounding).
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 # ---------------------------------------------------------------------------
@@ -119,9 +121,8 @@ def _epl_local(mixed_re, mixed_im, code_padded, required, rem_code,
                code_step, spacings, sampling_frequency):
     """Gather-free correlator: shifted code + per-group local one-hot.
 
-    On TPU, per-element gathers are the bottleneck of both the direct and the
-    cumsum formulations (~1 ms/epoch for the boundary gather at 32 channels).
-    This formulation exploits that the chip index is affine in the sample
+    Avoids the per-element gathers of the direct and the cumsum
+    formulations by exploiting that the chip index is affine in the sample
     index: within a 128-sample group the chip index spans only
     ``ceil(127*step)+1`` values, and the group's base chip is *statically*
     known up to one dynamic integer shift ``floor(rem + spacing)``. So:
@@ -178,8 +179,8 @@ def _epl_local(mixed_re, mixed_im, code_padded, required, rem_code,
         chips = jnp.sum(
             onehot * code_groups[:, None, :], axis=-1
         ).reshape(w)
-        outs.append(jnp.dot(chips, mre))
-        outs.append(jnp.dot(chips, mim))
+        outs.append(jnp.dot(chips, mre, precision=_HIGHEST))
+        outs.append(jnp.dot(chips, mim, precision=_HIGHEST))
     return jnp.stack(outs)
 
 
@@ -187,8 +188,7 @@ def _epl_bitpack(mixed_re, mixed_im, code_padded, required, rem_code,
                  code_step, spacings, sampling_frequency):
     """Arithmetic chip lookup via per-group bit-packed code words.
 
-    Like ``_epl_local`` but without materialising the one-hot tensor (which
-    is HBM-bound): each 128-sample group's ``local`` candidate chips are
+    Like ``_epl_local`` but without materialising the one-hot tensor: each 128-sample group's ``local`` candidate chips are
     packed as bits of one float32 integer word ``w[g] = sum_j bit_j * 2^j``
     (exact for local <= 24), and the per-sample chip is extracted as
 
@@ -238,7 +238,7 @@ def _epl_bitpack(mixed_re, mixed_im, code_padded, required, rem_code,
         base = jnp.clip(c0i + 2, 0, code_ext.shape[0] - 1033)
         code_sh = jax.lax.dynamic_slice(code_ext, (base,), (1033,))
         bits = (code_sh[static_idx] > 0).astype(jnp.float32)  # [n_groups, local]
-        words = bits @ pow2j                                   # [n_groups]
+        words = jnp.dot(bits, pow2j, precision=_HIGHEST)       # [n_groups]
         w_rep = jnp.repeat(words, g)                           # [w_len]
 
         idx = jnp.ceil(r + n * code_step).astype(jnp.int32)
@@ -252,8 +252,8 @@ def _epl_bitpack(mixed_re, mixed_im, code_padded, required, rem_code,
         bit = jnp.floor(t) - 2.0 * jnp.floor(t * 0.5)
         in_range = ((l >= 0) & (l < local)).astype(jnp.float32)
         chips = (2.0 * bit - 1.0) * in_range
-        outs.append(jnp.dot(chips, mre))
-        outs.append(jnp.dot(chips, mim))
+        outs.append(jnp.dot(chips, mre, precision=_HIGHEST))
+        outs.append(jnp.dot(chips, mim, precision=_HIGHEST))
     return jnp.stack(outs)
 
 

@@ -1,7 +1,7 @@
 """Device-mesh sharding of the receiver's parallel axes.
 
 The reference's only parallelism is one OS process per channel on one host
-(``/root/reference/sydr/channel/channelManager.py``). The TPU-native design
+(``/root/reference/sydr/channel/channelManager.py``). This design
 shards array axes over a ``jax.sharding.Mesh``:
 
 * ``ch`` — the channel axis (per-satellite state, the DP-like axis): the
@@ -93,10 +93,11 @@ def make_sharded_batch_step(cfg: runtime.TrackingConfig, mesh: Mesh,
     """Channel-shard the batched (production) runtime over ``mesh``.
 
     Every op in ``batch_runtime`` — pass A/C scalar scans, the dense pass,
-    and the fused Pallas kernel (grid ``(n_ch,)``) — is elementwise over the
-    channel axis, so the sharding is collective-free: each device runs the
-    full runtime on its channel shard with the sample window replicated
-    (the window upload rides the host link once; ICI never carries samples).
+    and the fused correlator (grid ``(n_ch, block_ms)``) — is elementwise
+    over the channel axis, so the sharding is collective-free: each device
+    runs the full runtime on its channel shard with the sample window
+    replicated (the window upload rides the host link once; the
+    interconnect never carries samples).
     This is the multi-chip path of the *production* runtime; the scanned
     runtime's equivalent is :func:`make_sharded_run_block`.
 
@@ -107,8 +108,6 @@ def make_sharded_batch_step(cfg: runtime.TrackingConfig, mesh: Mesh,
     Reference analog: one OS process per channel on one host
     (``/root/reference/sydr/channel/channelManager.py``).
     """
-    from jax.experimental.shard_map import shard_map
-
     from sydr_tpu.channels import batch_runtime as br
 
     def _step(tables, state, wre, wim):
@@ -119,11 +118,11 @@ def make_sharded_batch_step(cfg: runtime.TrackingConfig, mesh: Mesh,
             return br.run_superblock(cfg, k_blocks, tables, state, wre, wim)
         return br.run_block_batched(cfg, tables, state, wre, wim)
 
-    sharded = shard_map(
-        _step, mesh,
+    sharded = jax.shard_map(
+        _step, mesh=mesh,
         in_specs=(P("ch"), P("ch"), P(), P()),
         out_specs=(P("ch"), P(None, "ch")),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(sharded)
 

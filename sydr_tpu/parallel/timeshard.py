@@ -15,32 +15,17 @@ collectives —
 Combined with the channel axis this gives the 2-D (ch x sp) scaling story:
 channels when there are many satellites, time when there are few channels
 but high sample rates. Requires ``(tail_ms + block_ms) % n_shards == 0``.
-
-Two variants:
-
-  * :func:`run_block_batched_timesharded` — dense XLA pass per shard
-    (the original capability proof);
-  * :func:`run_block_batched_timesharded_pallas` /
-    :func:`run_superblock_timesharded` — the PRODUCTION numeric path
-    (Pallas rowsum kernel + quantised taps + hoisted wordpack) under
-    ``sp`` sharding: each device runs the kernel on its contiguous
-    ms-aligned sub-window with the per-ms anchor tables sliced along the
-    same axis, and the epoch-boundary prefixes decompose as
-    ``P(b) = sum(full-shard stream totals below) + P_local(b - m0)``
-    with the identical two collectives. Each shard builds its own
-    128-sample row grid, so bf16 row-total groupings differ from the
-    single-device kernel by rounding only.
+Each shard runs the XLA dense pass; the fused correlator has no
+sequence-parallel form yet.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from sydr_tpu.channels import batch_runtime as br
 from sydr_tpu.channels.runtime import TrackingConfig
@@ -72,9 +57,9 @@ def run_block_batched_timesharded(
     n_win = cfg.window_samples
 
     geo = br._pass_a(cfg, state)
-    bg = br.block_geometry(cfg, bits3x, state, geo)
-    base, words, fb_q, phic_q = (
-        bg["base"], bg["words"], bg["fb_q"], bg["phic_q"])
+    bg = br.block_geometry(cfg, state, geo)
+    base, fb_q, phic_q = bg["base"], bg["fb_q"], bg["phic_q"]
+    words = br.block_words(cfg, bits3x, state, bg["c_int"])
     omega = geo["omega"]
     code_step = geo["code_step"]
     n_ch = words.shape[0]
@@ -112,11 +97,11 @@ def run_block_batched_timesharded(
         anchors = jax.lax.psum(contrib, "sp")              # replicated
         return anchors
 
-    anchors = shard_map(
-        shard_fn, mesh,
+    anchors = jax.shard_map(
+        shard_fn, mesh=mesh,
         in_specs=(P(None, "sp"), P(None, "sp")),
         out_specs=P(),
-        check_rep=False,
+        check_vma=False,
     )(window_re.reshape(1, n_win), window_im.reshape(1, n_win))
 
     n_streams = anchors.shape[1]
@@ -126,184 +111,3 @@ def run_block_batched_timesharded(
     a_end = picked[:, :, bm:]
     corr = jnp.transpose(a_end - a_start, (2, 0, 1))       # [bm, n_ch, S]
     return br._pass_c(cfg, state, geo, corr)
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "mesh"))
-def run_block_batched_timesharded_pallas(
-    cfg: TrackingConfig, mesh: Mesh, bits3x, state: ChannelState,
-    window_re, window_im, wordpack=None,
-):
-    """Production-path (Pallas rowsum + quantised taps) block under ``sp``.
-
-    Drop-in for ``br.run_block_batched`` with ``cfg.use_pallas`` /
-    ``boundary_mode == "rowsum"``: shard ``d`` runs the rowsum kernel over
-    its ms-aligned sub-window (``n_ms / n_sp`` milliseconds) with the
-    per-ms anchor tables ``fb_q``/``phic_q`` sharded along the same axis,
-    then the epoch-boundary stream prefixes are assembled exactly as in
-    ``br._pass_b``'s rowsum branch, split per shard:
-
-      ``P(b) = below(d) + P_local(b - m0)``
-
-    where ``below`` is the exclusive cross-shard prefix of full-shard
-    stream totals (one ``all_gather``) and ``P_local`` is the shard-local
-    ``br._rowsum_boundary_prefix`` on its own row grid; each boundary is
-    owned by exactly one shard and contributions combine with one
-    ``psum``. Row grids are shard-local, so values differ from the
-    single-device kernel only in bf16 row-total grouping.
-    """
-    from sydr_tpu.ops import correlator_kernel as ck
-    from sydr_tpu.ops import profiles as prof
-    from sydr_tpu.channels.runtime import _slew_anchor
-
-    assert cfg.use_pallas and cfg.boundary_mode == "rowsum", (
-        "this variant shards the production Pallas rowsum path; use "
-        "run_block_batched_timesharded for the dense pass")
-    n_sp = mesh.shape["sp"]
-    n_ms = cfg.tail_ms + cfg.block_ms
-    assert n_ms % n_sp == 0, (
-        f"tail_ms + block_ms = {n_ms} must divide over {n_sp} shards")
-    spms = cfg.samples_per_ms
-    fs = cfg.sampling_frequency
-    n_ms_l = n_ms // n_sp
-    shard_len = n_ms_l * spms
-    n_win = cfg.window_samples
-    gsize, local = br._group_size(fs)
-    step0 = br.GPS_L1CA_CODE_FREQ / fs
-
-    chunk = min(8192, 1024 * (spms // 1024))
-    assert chunk >= 1024, "rowsum kernel needs >= ~1.05 Msps"
-
-    geo = br._pass_a(cfg, state)
-    bg = br.block_geometry(cfg, bits3x, state, geo, wordpack=wordpack)
-    base, words, fb_q, phic_q = (
-        bg["base"], bg["words"], bg["fb_q"], bg["phic_q"])
-    omega = geo["omega"]
-    code_step = geo["code_step"]
-    if wordpack is not None:
-        words_p = wordpack["wtab_p"]
-        drift = bg["word_drift"].astype(jnp.float32)
-    else:
-        words_p = br._kernel_word_table(cfg, words)
-        drift = jnp.zeros_like(omega)
-    scalars = jnp.stack(
-        [omega, code_step, drift] + [jnp.zeros_like(omega)] * 5, axis=1)
-    spacings_eff = tuple(prof.spacings_for(cfg))
-    shifts = prof.spacing_shifts(cfg)
-
-    req_eff = jnp.where(geo["active"], geo["required"], 0)
-    b_start = jnp.clip(geo["b_start"] + base[None, :], 0, n_win)
-    last_end = jnp.clip(b_start[-1:] + req_eff[-1:], 0, n_win)
-    bounds = jnp.concatenate([b_start, last_end], axis=0)  # [bm+1, n_ch]
-    pvals = jnp.transpose(bounds, (1, 0))                  # [n_ch, bm+1]
-
-    # Kernel program size: per shard the window is only n_ms/n_sp ms, so
-    # the single-device 64k-sample program would mostly be zero padding —
-    # cap it at the shard length rounded up to whole chunks.
-    program = int(os.environ.get(
-        "SYDR_KERNEL_PROGRAM", str(2 * ck.SUPER * ck.CHUNK)))
-    super_n = max(ck.SUPER, min(program // chunk,
-                                -(-shard_len // chunk)))
-    blockpad = super_n * chunk
-    pad_l = (-shard_len) % blockpad
-
-    def shard_fn(win_re_l, win_im_l, fb_l, ph_l):
-        d = jax.lax.axis_index("sp")
-        wre_p = win_re_l[0]
-        wim_p = win_im_l[0]
-        if pad_l:
-            wre_p = jnp.concatenate(
-                [wre_p, jnp.zeros(pad_l, jnp.float32)])
-            wim_p = jnp.concatenate(
-                [wim_p, jnp.zeros(pad_l, jnp.float32)])
-        rowtot = ck.block_rowsum_streams(
-            wre_p, wim_p, words_p, fb_l, ph_l, scalars,
-            spacings=spacings_eff, spms=spms, n_q=n_ms_l, local=local,
-            step0=step0, gsize=gsize, chunk=chunk, super_n=super_n,
-            n_win=shard_len, interpret=cfg.pallas_interpret, shifts=shifts,
-        )                                           # [n_ch, rows_pad, S]
-        totals = jnp.sum(rowtot.astype(jnp.float32), axis=1)   # [n_ch, S]
-        all_tot = jax.lax.all_gather(totals, "sp")  # [n_sp, n_ch, S]
-        shard_ids = jnp.arange(n_sp)
-        below = jnp.sum(
-            jnp.where((shard_ids < d)[:, None, None], all_tot, 0.0),
-            axis=0)                                 # [n_ch, S]
-
-        m0 = d * shard_len
-        owner = (pvals >= m0) & (
-            (pvals < m0 + shard_len) | (d == n_sp - 1))
-        lb = jnp.clip(pvals - m0, 0, shard_len)
-        p_local = br._rowsum_boundary_prefix(
-            cfg, rowtot, wre_p, wim_p, words, fb_l, ph_l,
-            omega, code_step, lb, spacings_eff, shifts,
-            spms, n_ms_l, local, step0, gsize,
-        )                                           # [n_ch, S, bm+1]
-        contrib = jnp.where(
-            owner[:, None, :], p_local + below[..., None], 0.0)
-        return jax.lax.psum(contrib, "sp")
-
-    picked = shard_map(
-        shard_fn, mesh,
-        in_specs=(P(None, "sp"), P(None, "sp"),
-                  P(None, "sp"), P(None, "sp")),
-        out_specs=P(),
-        check_rep=False,
-    )(window_re.reshape(1, n_win), window_im.reshape(1, n_win),
-      fb_q, phic_q)
-
-    corr = picked[:, :, 1:] - picked[:, :, :-1]
-    corr = jnp.transpose(corr, (2, 0, 1))                  # [bm, n_ch, S]
-    new_state, outputs = br._pass_c(cfg, state, geo, corr)
-    return _slew_anchor(cfg, new_state), outputs
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "mesh", "k_blocks"))
-def run_superblock_timesharded(
-    cfg: TrackingConfig, mesh: Mesh, k_blocks: int, bits3x,
-    state: ChannelState, samples_re, samples_im,
-):
-    """``br.run_superblock`` with every block's pass B sharded over ``sp``.
-
-    Identical wordpack-hoist grouping and scan plumbing to
-    ``br.run_superblock`` (one drift-extended word table per <= 0.2 s
-    group); each block's dense correlation runs through
-    :func:`run_block_batched_timesharded_pallas`, so the production
-    superblock path scales 2-D: ``ch`` collective-free, ``sp`` with one
-    all_gather + psum per block.
-    """
-    from sydr_tpu.channels.state import pack_state, unpack_state
-
-    spms = cfg.samples_per_ms
-    sb = cfg.block_ms * spms
-    win_len = cfg.window_samples
-
-    max_group = max(1, int(round(0.2 / (cfg.block_ms * 1e-3))))
-    group = max(g for g in range(1, k_blocks + 1)
-                if k_blocks % g == 0 and g <= max_group)
-    n_groups = k_blocks // group
-    t_group_s = group * cfg.block_ms * 1e-3
-
-    def inner(wordpack, st, start):
-        wre = jax.lax.dynamic_slice(samples_re, (start,), (win_len,))
-        wim = jax.lax.dynamic_slice(samples_im, (start,), (win_len,))
-        return run_block_batched_timesharded_pallas(
-            cfg, mesh, bits3x, st, wre, wim, wordpack=wordpack)
-
-    def outer(packed, kg):
-        st = unpack_state(*packed)
-        wordpack = br.make_wordpack(cfg, bits3x, st, t_sb_s=t_group_s)
-
-        def body(packed2, j):
-            st2, outs2 = inner(wordpack, unpack_state(*packed2),
-                               kg * (group * sb) + j * sb)
-            return pack_state(st2), outs2
-
-        packed, outs = jax.lax.scan(
-            body, packed, jnp.arange(group, dtype=jnp.int32))
-        return packed, outs
-
-    packed, outs = jax.lax.scan(
-        outer, pack_state(state), jnp.arange(n_groups, dtype=jnp.int32))
-    state = unpack_state(*packed)
-    merged = jax.tree_util.tree_map(
-        lambda x: x.reshape((k_blocks * cfg.block_ms,) + x.shape[3:]), outs)
-    return state, merged

@@ -213,7 +213,7 @@ class _ChannelBookkeeping:
 
 
 class Receiver:
-    """Streaming GPS L1 C/A receiver over the TPU channel runtime."""
+    """Streaming GPS L1 C/A receiver over the device channel runtime."""
 
     def __init__(self, cfg: ReceiverConfig):
         self.cfg = cfg

@@ -5,8 +5,8 @@ Covers the reference ``RFSignal`` file front-end
 interleaved-complex layouts, chunked millisecond reads, and position seeking.
 The hot demux/convert path (interleaved int8 -> float32 planes) is done by
 the native C++ reader (``native/rf_reader.cpp``) when built, with a numpy
-fallback — mirroring the reference's C layer split, but feeding the TPU's
-(re, im) float32 planes directly.
+fallback — mirroring the reference's C layer split, but feeding the
+device's (re, im) float32 planes directly.
 """
 
 from __future__ import annotations

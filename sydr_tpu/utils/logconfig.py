@@ -85,4 +85,7 @@ def configure_logging(
 
     levels = [console.level] + ([fh.level] if out_folder else [])
     root.setLevel(min(levels))
+    # JAX logs every compilation at DEBUG through a console handler of its
+    # own; a DEBUG root level would let all of it through.
+    logging.getLogger("jax").setLevel(logging.WARNING)
     return logfile

@@ -11,8 +11,8 @@ decoded subframe downstream).
 
 Reference analog: the per-ms loop of
 ``/root/reference/sydr/channel/channel_l1ca_borre.py:333-433`` never faces
-this — the TPU design owes the handoff to make its benched cruise shape the
-actual production path (round-2 verdict item 2).
+this — this design owes the handoff to make its benched cruise shape the
+actual production path.
 """
 
 import dataclasses

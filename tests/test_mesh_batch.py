@@ -88,11 +88,11 @@ def test_sharded_superblock_matches_single_device():
 
 
 def test_sharded_batch_step_rowsum_pallas_matches_single_device():
-    """The Pallas rowsum path (kernel + XLA boundary recompute) is per-channel
+    """The fused correlator (grid over channels x epochs) is per-channel
     elementwise, so channel-sharding it must stay bit-identical."""
     cfg = TrackingConfig(sampling_frequency=10e6, block_ms=2, tail_ms=2,
                          window_size=10240, runtime="batch", use_pallas=True,
-                         pallas_interpret=True, boundary_mode="rowsum")
+                         pallas_interpret=True, quantize_spacing=True)
     n_ch = 4
     bits3x, state, wre, wim = _inputs(cfg, n_ch)
 

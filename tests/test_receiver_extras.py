@@ -582,3 +582,48 @@ def test_dashboard_rich_render():
     assert text.count("\x1b[97;42m1\x1b[0m") == 1   # sf1 green on ch0 only
     assert text.count("\x1b[97;41m4\x1b[0m") == 2   # sf4 red on both
     dash.close()
+
+
+def test_report_without_matplotlib(tmp_path, monkeypatch):
+    """Without matplotlib the report keeps its tables and statistics."""
+    import sys
+
+    from sydr_tpu.io.database import ResultDatabase
+    from sydr_tpu.io.report import generate_report
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    db = ResultDatabase(str(tmp_path / "r.db"))
+    db.add("acquisition", {"prn": 5, "doppler": 1200.0, "code_index": 77,
+                           "metric": 3.2})
+    for k in range(3):
+        db.add("position", {"tow": 1.0 + k, "sample": k,
+                            "x": 2795125.0 + k, "y": 1236112.0,
+                            "z": 5579646.0, "clock_bias": 10.0,
+                            "n_satellites": 5, "gdop": 2.0,
+                            "vx": 0.1, "vy": 0.0, "vz": 0.0,
+                            "clock_drift": 0.0})
+    db.add("timing", {"stage": "track_block", "count": 1, "mean_ms": 1.0,
+                      "max_ms": 1.0, "total_s": 0.001})
+    db.commit()
+    out = generate_report(db, str(tmp_path / "report.html"),
+                          reference_position=(2795125.0, 1236112.0,
+                                              5579646.0))
+    text = open(out).read()
+    assert "matplotlib is not installed" in text
+    assert "base64" not in text
+    assert "<td>G05</td>" in text and "<td>3D</td>" in text
+    assert "<h3>Velocity</h3>" in text
+    db.close()
+
+
+def test_config_yaml_without_pyyaml(tmp_path, monkeypatch):
+    """A YAML config without PyYAML names the .ini alternative."""
+    import sys
+
+    from sydr_tpu import config as cfgmod
+
+    y = tmp_path / "rx.yaml"
+    y.write_text("sampling_frequency: 4e6\n")
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    with pytest.raises(ImportError, match=r"\.ini"):
+        cfgmod.load(str(y))

@@ -121,7 +121,7 @@ def _ref_track(iq, code1025, n_ms, s0):
     return out
 
 
-def _tpu_track(iq, n_ms, s0):
+def _sydr_track(iq, n_ms, s0):
     """The same loop through sydr_tpu's ops (scan-runtime DSP layer)."""
     import jax.numpy as jnp
 
@@ -179,26 +179,26 @@ def test_tracking_dsp_parity():
     code1025 = np.r_[code[-1], code, code[0]].astype(np.float64)
 
     ref = _ref_track(iq, code1025, n_ms, s0)
-    tpu = _tpu_track(iq, n_ms, s0)
+    ours = _sydr_track(iq, n_ms, s0)
 
     # Early window: float32 vs float64 round-off has not yet fed back
     # through the loops, so the correlators must agree tightly.
     for e in range(40):
         rc = np.asarray(ref[e][0], dtype=np.float64)
-        tc = np.asarray(tpu[e][0], dtype=np.float64)
+        tc = np.asarray(ours[e][0], dtype=np.float64)
         np.testing.assert_allclose(tc, rc, rtol=5e-3, atol=2.0,
                                    err_msg=f"epoch {e}")
 
     # After convergence both loops track the same truth: trajectories agree.
     ref_cf = np.array([r[1] for r in ref])
-    tpu_cf = np.array([r[1] for r in tpu])
+    our_cf = np.array([r[1] for r in ours])
     assert abs(ref_cf[-100:].mean() - DOP) < 2.0
-    assert abs(tpu_cf[-100:].mean() - DOP) < 2.0
-    assert abs(ref_cf[-100:].mean() - tpu_cf[-100:].mean()) < 1.0
+    assert abs(our_cf[-100:].mean() - DOP) < 2.0
+    assert abs(ref_cf[-100:].mean() - our_cf[-100:].mean()) < 1.0
     # Code phase trajectories stay sample-aligned.
     ref_rc = np.array([r[2] for r in ref])
-    tpu_rc = np.array([r[2] for r in tpu])
-    assert np.abs(ref_rc[-100:] - tpu_rc[-100:]).mean() < 0.05
+    our_rc = np.array([r[2] for r in ours])
+    assert np.abs(ref_rc[-100:] - our_rc[-100:]).mean() < 0.05
 
 
 def test_reference_cpu_rate_measured():

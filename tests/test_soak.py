@@ -1,13 +1,11 @@
 """Long-run closed-loop soak (slow): production numeric path for minutes.
 
-VERDICT round-2 item 7 — the 4-block chip-parity case said the quantized
-wordpack path's rounding is near its documented edge; this pins the
-question for real: 5 minutes of Kepler-drifting signal through the
-quantized-tap + wordpack + rowsum + decimation receiver (pull-in ->
-cruise), fixes < 2 m throughout and no correlator-amplitude decay.
+5 minutes of Kepler-drifting signal through the quantised-tap +
+decimation receiver (pull-in -> cruise): fixes < 2 m throughout and no
+correlator-amplitude decay.
 
-The same driver runs on the TPU chip with the Pallas kernel via
-``tools/soak.py --pallas`` (results recorded in docs/performance.md).
+The same driver runs on a GPU with the fused correlator via
+``tools/soak.py --pallas``.
 """
 
 import pytest
@@ -27,8 +25,7 @@ def test_soak_fixes_stay_bounded(soak):
     assert soak["n_fixes"] > 150, soak
     # Mean pins the smoothed noise floor (~0.5 m measured); max gets 3 m
     # headroom — a hard 2 m over ~300 fixes was statistically overtight
-    # (round-4 runs: mean 0.66 m with one 2.13 m excursion, identical on
-    # CPU and chip; docs/performance.md "Round-4 soaks").
+    # (round-4 runs: mean 0.66 m with one 2.13 m excursion).
     assert soak["fix_err_mean_m"] < 1.0, soak
     assert soak["fix_err_max_m"] < 3.0, soak
 

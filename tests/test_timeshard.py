@@ -70,77 +70,3 @@ def test_timeshard_requires_divisible_ms():
     cfg, bits3x, state, wre, wim = _setup(block_ms=21)  # 25 ms !% 8
     with pytest.raises(AssertionError):
         run_block_batched_timesharded(cfg, mesh, bits3x, state, wre, wim)
-
-
-def _production_cfg(cfg, **over):
-    return dataclasses.replace(
-        cfg, use_pallas=True, pallas_interpret=True,
-        boundary_mode="rowsum", quantize_spacing=True, **over)
-
-
-def test_timesharded_pallas_production_matches_unsharded(monkeypatch):
-    """The PRODUCTION path (Pallas rowsum + quantised taps) under sp.
-
-    Compared against the unsharded Pallas rowsum path: the only numeric
-    difference is the shard-local 128-sample row grid's bf16 row-total
-    grouping, so correlators must agree to bf16-rounding tolerance and
-    the replayed loop state must match closely.
-    """
-    assert len(jax.devices()) >= 8
-    # keep the unsharded reference kernel's zero-padding small on CPU
-    monkeypatch.setenv("SYDR_KERNEL_PROGRAM", "8192")
-    from sydr_tpu.parallel.timeshard import (
-        run_block_batched_timesharded_pallas)
-
-    mesh = make_sp_mesh(8)
-    cfg, bits3x, state, wre, wim = _setup()
-    cfg = _production_cfg(cfg)
-
-    st_ref, out_ref = br.run_block_batched(cfg, bits3x, state, wre, wim)
-    st_sp, out_sp = run_block_batched_timesharded_pallas(
-        cfg, mesh, bits3x, state, wre, wim)
-
-    for key in ("i_prompt", "q_prompt", "i_early", "i_late"):
-        ref = np.asarray(out_ref[key])
-        got = np.asarray(out_sp[key])
-        scale = np.abs(ref).max()
-        np.testing.assert_allclose(got, ref, rtol=2e-2,
-                                   atol=0.02 * scale), key
-    np.testing.assert_allclose(
-        np.asarray(st_sp.carrier_freq), np.asarray(st_ref.carrier_freq),
-        atol=0.1)
-    np.testing.assert_array_equal(np.asarray(st_sp.unread),
-                                  np.asarray(st_ref.unread))
-
-
-def test_timesharded_superblock_matches_unsharded(monkeypatch):
-    """Hoisted-wordpack superblock under sp vs br.run_superblock."""
-    assert len(jax.devices()) >= 8
-    monkeypatch.setenv("SYDR_KERNEL_PROGRAM", "8192")
-    from sydr_tpu.parallel.timeshard import run_superblock_timesharded
-
-    mesh = make_sp_mesh(8)
-    cfg, bits3x, state, wre, wim = _setup()
-    cfg = _production_cfg(cfg, superblock=2)
-
-    gen = IQGenerator(FS, noise=True, seed=7)
-    for prn, dop in zip([5, 12], [1200.0, -2600.0]):
-        gen.add_satellite(prn, doppler_hz=dop, code_phase_chips=77.0,
-                          cn0_dbhz=48.0)
-    iq = gen.generate_ms(4 + 2 * cfg.block_ms)
-    sre = jnp.asarray(np.float32(iq.real))
-    sim = jnp.asarray(np.float32(iq.imag))
-
-    st_ref, out_ref = br.run_superblock(cfg, 2, bits3x, state, sre, sim)
-    st_sp, out_sp = run_superblock_timesharded(
-        cfg, mesh, 2, bits3x, state, sre, sim)
-
-    for key in ("i_prompt", "q_prompt"):
-        ref = np.asarray(out_ref[key])
-        got = np.asarray(out_sp[key])
-        scale = np.abs(ref).max()
-        np.testing.assert_allclose(got, ref, rtol=2e-2,
-                                   atol=0.02 * scale), key
-    np.testing.assert_allclose(
-        np.asarray(st_sp.carrier_freq), np.asarray(st_ref.carrier_freq),
-        atol=0.1)

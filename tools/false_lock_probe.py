@@ -40,6 +40,10 @@ def main(argv=None) -> int:
 
         jax.config.update("jax_platforms", "cpu")
 
+    from sydr_tpu.utils import compile_cache
+
+    compile_cache.enable()
+
     from sydr_tpu.channels.runtime import TrackingConfig
     from sydr_tpu.constants import (
         GPS_L1CA_CARRIER_FREQ, GPS_L1CA_CODE_FREQ)

@@ -1,22 +1,21 @@
-"""Refresh the committed chip-parity CPU-truth cache.
+"""Refresh the committed parity CPU-truth cache.
 
-Run after any change to the tracking semantics (batch_runtime, runtime,
-state, ops.tracking, cacode, synthetic, correlator_kernel):
+Run after any change to the dense-pass semantics (batch_runtime, runtime,
+state, ops.tracking, ops.profiles, cacode, synthetic):
 
-    env PYTHONPATH=/root/repo python tools/make_parity_truth.py
+    python tools/make_parity_truth.py
 
 Writes ``tools/parity_truth.npz`` (key = hash of SETUP + those sources).
-``bench.py``'s parity gate and ``tools/chip_parity.py`` load this cache
-instead of re-deriving the truth in a minutes-long CPU subprocess — the
-recompute cost is what timed out the round-3 driver bench.
+``bench.py``'s parity gate, ``chip_smoke.py`` and ``tools/chip_parity.py``
+load this cache instead of re-deriving the truth in a CPU subprocess.
 """
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from tools.chip_parity import TRUTH_FILE, _cpu_truth  # noqa: E402
+from tools.chip_parity import TRUTH_FILE, cpu_truth  # noqa: E402
 
 if __name__ == "__main__":
-    _cpu_truth(force=True)
+    cpu_truth(force=True)
     print(f"wrote {TRUTH_FILE} ({os.path.getsize(TRUTH_FILE)} bytes)")

@@ -696,6 +696,10 @@ def main(argv=None) -> int:
 
         jax.config.update("jax_platforms", "cpu")
 
+    from sydr_tpu.utils import compile_cache
+
+    compile_cache.enable()
+
     os.makedirs(args.out, exist_ok=True)
     if args.replay:
         from sydr_tpu.signal.scenario import DEMO_RX_TRUTH, demo_ephemerides
@@ -703,7 +707,7 @@ def main(argv=None) -> int:
         global RX_TRUTH
         RX_TRUTH = np.asarray(DEMO_RX_TRUTH)
         sats = demo_ephemerides(T0, WEEK)
-        our_db = os.path.join(args.out, "tpu_results", "tpu.db")
+        our_db = os.path.join(args.out, "sydr_results", "sydr.db")
         ref_db = os.path.join(args.out, "ref_results", "ref.db")
         our_rtf = ref_rtf = float("nan")
     else:
@@ -713,7 +717,7 @@ def main(argv=None) -> int:
         ini_ref = write_ini(args.out, capture, args.fs, args.seconds, prns,
                             "ref")
         ini_our = write_ini(args.out, capture, args.fs, args.seconds, prns,
-                            "tpu")
+                            "sydr")
 
         our_db, our_rtf = run_ours(ini_our, args.runtime, args.pallas,
                                    smoothing_s=args.smooth)

@@ -1,21 +1,20 @@
 """Long-run closed-loop soak on the production numeric path.
 
-VERDICT round-2 item 7: the quantized-tap + hoisted-wordpack + rowsum (+
-decimation) path was parity-checked over 4 closed-loop blocks
-(tools/chip_parity.py); this harness runs it for MINUTES of signal with
+The quantised-tap (+ decimation) path is parity-checked over 4 closed-loop
+blocks (tools/chip_parity.py); this harness runs it for MINUTES of signal with
 the real Kepler-orbit Doppler drift (~0.5 Hz/s) of the truth scenario and
 asserts the loop never degrades:
 
   * every PVT fix after convergence lands < 2 m from the truth position;
   * the prompt-correlator amplitude never collapses (late-window power
-    within 20% of the early steady-state window — the chip-parity
-    "wordpack lowering broke" signature is an amplitude collapse);
+    within 20% of the early steady-state window — misaligned correlator
+    chips show as an amplitude collapse);
   * C/N0 stays within 1.5 dB of its steady-state mean.
 
-Runs on CPU (XLA dense/rowsum lowering, pytest ``-m slow`` via
-tests/test_soak.py) and on the TPU chip with the Pallas kernel::
+Runs on CPU (XLA dense pass, pytest ``-m slow`` via tests/test_soak.py)
+and on a GPU with the fused correlator::
 
-    env PYTHONPATH=/root/repo python tools/soak.py --seconds 300 --pallas
+    python tools/soak.py --seconds 300 --pallas
 
 Prints one JSON line with the soak metrics.
 """
@@ -156,13 +155,17 @@ def main(argv=None) -> int:
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+
+    from sydr_tpu.utils import compile_cache
+
+    compile_cache.enable()
     res = run_soak(seconds=args.seconds, fs=args.fs,
                    decimate=args.decimate, use_pallas=args.pallas,
                    superblock=args.superblock, seed=args.seed)
     # Bounds: mean tests the noise floor, max the outliers. A hard 2 m
     # max over ~300 steady-state fixes was statistically overtight — the
-    # round-4 runs read mean 0.66 m with a single 2.13 m excursion (CPU
-    # and chip agree on it to the millimetre), so max gets 3 m while the
+    # round-4 runs read mean 0.66 m with a single 2.13 m excursion, so
+    # max gets 3 m while the
     # mean bound tightens to 1 m (the smoothed noise floor is ~0.5 m).
     res["ok"] = bool(
         res["n_fixes"] > args.seconds // 2

@@ -41,6 +41,10 @@ def main(argv=None) -> int:
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+
+    from sydr_tpu.utils import compile_cache
+
+    compile_cache.enable()
     logging.basicConfig(
         level=logging.INFO,
         format="%(relativeCreated)8.0fms %(levelname)s %(message)s")

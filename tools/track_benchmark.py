@@ -324,6 +324,10 @@ def main(argv=None) -> int:
 
         jax.config.update("jax_platforms", "cpu")
 
+    from sydr_tpu.utils import compile_cache
+
+    compile_cache.enable()
+
     profiles = (("borre", "kaplan") if args.profile == "both"
                 else (args.profile,))
     if args.pvt:
